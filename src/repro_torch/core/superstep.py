@@ -1,0 +1,292 @@
+"""One Pregel superstep as a sequence of tensor operators (paper Figures
+3/4/5), with the partitions on the leading axis P of every tensor.
+
+    Msg_i --[receiver group-by + combine]--> combined payloads      (D1)
+    Vertex_i --[join: full-outer dense | left-outer frontier]--> compute
+    compute UDF --> value'/halt'/sends/aggregate                    (D2)
+    sends --[edge gather]--[sender combine]--[bucket]--[exchange]   (D3/D7)
+    aggregates --[reduction]--> GS_{i+1}
+
+The superstep has one structure, whatever the device: full-outer plans
+gather edge values through the csr_spmv kernel, and the sender combine
+folds through the segment_combine kernel and then compacts the survivors
+straight into the bucket pack. Only the innermost kernel call changes
+with the device (kernels/backend.py). The exchange is the single-device
+transpose; mutations, custom combine UDFs, the collective transport and
+out-of-core collection come with later slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.core import connector, groupby
+from repro_torch.core.plan import PhysicalPlan
+from repro_torch.core.program import ComputeOut, VertexProgram
+from repro_torch.core.relations import GlobalState, MsgRel, VertexRel
+from repro_torch.kernels import backend as kbackend
+
+INT32_MAX = 2 ** 31 - 1
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    n_parts: int                 # total partitions
+    bucket_cap: int              # per (src,dst)-partition bucket capacity
+    mutation_cap: int = 64       # insert-proposal bucket capacity
+    frontier_cap: int = 0        # left-outer frontier capacity (0 = Np/2)
+    axis_name: Optional[tuple] = None   # multi-device slice
+    ooc_collect: bool = False           # out-of-core slice
+    exchange_apart: bool = False        # multi-device slice
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_along_axis on dim 1 for (P, n) or (P, n, V) tensors."""
+    idx = idx.long()
+    if a.dim() == 3:
+        idx = idx[..., None].expand(*idx.shape, a.shape[2])
+    return torch.gather(a, 1, idx)
+
+
+def _scatter_rows(full: torch.Tensor, rows: torch.Tensor,
+                  tgt: torch.Tensor) -> torch.Tensor:
+    """full.at[p, tgt[p]].set(rows[p]) with tgt == n dropped (sink)."""
+    P, n = full.shape[:2]
+    sink = torch.zeros((P, 1) + full.shape[2:], dtype=full.dtype,
+                       device=full.device)
+    out = torch.cat([full, sink], dim=1)
+    idx = tgt.long()
+    if full.dim() == 3:
+        idx = idx[..., None].expand(*idx.shape, full.shape[2])
+    out.scatter_(1, idx, rows.to(full.dtype))
+    return out[:, :n]
+
+
+def compact_combined(dst, payload, valid, capc: int):
+    """Fused combine -> exchange-pack leg: compact each partition's
+    combined survivors (one row per distinct destination, dst ascending)
+    down to the ``capc`` rows the buckets can accept, so the bucket build
+    never re-materializes the full (P, Ep) payload relation.
+    Order-preserving (the ``presorted`` contract holds); rows beyond capc
+    count as bucket overflow."""
+    idx, _, ovf = groupby.compact(valid, capc)
+    ok = idx >= 0
+    take = idx.clamp(min=0)
+    return (torch.where(ok, _take(dst, take), -1),
+            torch.where(ok[..., None], _take(payload, take), 0.0),
+            ok, ovf.sum())
+
+
+def make_superstep(program: VertexProgram, plan: PhysicalPlan,
+                   ec: EngineConfig):
+    plan.validate(program.combine_op)
+    if getattr(program, "mutates", False):
+        raise NotImplementedError(
+            "mutating programs (resurrect / apply_mutations) come with the "
+            "port's mutation slice")
+    if program.combine_op == "custom":
+        raise NotImplementedError(
+            "combine_op='custom' comes with the port's mutation slice")
+    if ec.axis_name is not None or ec.exchange_apart:
+        raise NotImplementedError(
+            "axis_name / exchange_apart come with the port's multi-device "
+            "slice")
+    if ec.ooc_collect:
+        raise NotImplementedError(
+            "ooc_collect comes with the port's out-of-core slice")
+    n_parts = ec.n_parts
+    op = program.combine_op
+    kernel_gather = plan.join == "full_outer"
+
+    def _slot_of(dst, valid, Np):
+        if plan.partition == "range":
+            owner = torch.clamp_max(dst // Np, n_parts - 1)
+            return torch.where(valid, dst - owner * Np, Np)
+        return torch.where(valid, dst // n_parts, Np)
+
+    def receiver_groupby(msg: MsgRel, Np: int):
+        # run-capacity contract: msg.capacity = n_parts equal-width runs
+        slot = _slot_of(msg.dst, msg.valid, Np)
+        P = slot.shape[0]
+        if plan.connector == "partitioning_merging":
+            C = msg.capacity // n_parts
+            return groupby.run_combine_dense(
+                slot.reshape(P, n_parts, C),
+                msg.payload.reshape(P, n_parts, C, -1),
+                msg.valid.reshape(P, n_parts, C), Np, op)
+        if plan.groupby == "sort":
+            return groupby.sort_combine_dense(slot, msg.payload, msg.valid,
+                                              Np, op)
+        return groupby.scatter_combine_dense(slot, msg.payload, msg.valid,
+                                             Np, op)
+
+    def run_compute(vert: VertexRel, combined, has_msg, gs):
+        P, Np = vert.vid.shape
+        active = ((~vert.halt) | has_msg) & (vert.vid >= 0)
+        if plan.join == "full_outer":
+            out = program.compute(vert.vid, vert.value, combined, has_msg,
+                                  active, gs)
+            return out, active, None
+        # left-outer: compact the frontier and gather (index probe)
+        F = ec.frontier_cap or max(Np // 2, 1)
+        idx, _, ovf = groupby.compact(active, F)
+        take = idx.clamp(min=0)
+        fvid = torch.where(idx >= 0, _take(vert.vid, take), -1)
+        fval = _take(vert.value, take)
+        fcomb = _take(combined, take)
+        fhas = _take(has_msg, take) & (idx >= 0)
+        factive = idx >= 0
+        out = program.compute(fvid, fval, fcomb, fhas, factive, gs)
+        return out, active, (idx, factive, ovf)
+
+    def apply_updates(vert: VertexRel, out: ComputeOut, active, frontier):
+        P, Np = vert.vid.shape
+        if frontier is None:
+            upd = active
+            value = torch.where(upd[..., None], out.value, vert.value)
+            halt = torch.where(upd, out.halt, vert.halt | ~active)
+            gate = out.send_gate & upd
+            agg = (out.aggregate, upd) if out.aggregate is not None else None
+            return value, halt, gate, agg
+        idx, factive, _ = frontier
+        tgt = torch.where(factive, idx, Np)                 # Np = sink
+        value = _scatter_rows(vert.value, out.value, tgt)
+        halt = _scatter_rows(vert.halt, out.halt, tgt)
+        gate = _scatter_rows(torch.zeros_like(vert.halt), out.send_gate,
+                             tgt)
+        agg = (out.aggregate, factive) if out.aggregate is not None else None
+        return value, halt, gate & active, agg
+
+    def gen_messages(vert: VertexRel, value_new, gate_dense, gs, layout):
+        """Edge-parallel send (dataflow D3). Under the left-outer plan the
+        edge stream is COMPACTED to the frontier's edges first, so payload
+        generation, the sender combine and the bucket sort run at
+        O(|frontier edges|) instead of O(|E|)."""
+        Ep = vert.edge_src.shape[1]
+        esl = vert.edge_src.clamp(min=0)
+        egate = _take(gate_dense, esl) & (vert.edge_src >= 0) & \
+            (vert.edge_dst >= 0)
+        edge_src, edge_dst, edge_val = (vert.edge_src, vert.edge_dst,
+                                        vert.edge_val)
+        if plan.join == "left_outer":
+            EF = min(max(ec.frontier_cap * 8, 64), Ep)
+            eidx, _, ovf_e = groupby.compact(egate, EF)
+            etake = eidx.clamp(min=0)
+            edge_src = torch.where(eidx >= 0, _take(vert.edge_src, etake),
+                                   -1)
+            edge_dst = torch.where(eidx >= 0, _take(vert.edge_dst, etake),
+                                   -1)
+            edge_val = _take(vert.edge_val, etake)
+            egate = eidx >= 0
+            esl = edge_src.clamp(min=0)
+            ovf_edges = ovf_e.sum()
+        else:
+            ovf_edges = torch.zeros((), dtype=torch.int32,
+                                    device=egate.device)
+        src_vid = _take(vert.vid, esl)
+        if kernel_gather:
+            # csr_spmv kernel (plain gather on CPU tensors): invalid lanes
+            # read 0.0, masked by egate before anything observable
+            src_val = kbackend.edge_gather_values(value_new, edge_src,
+                                                  layout)
+        else:
+            src_val = _take(value_new, esl)
+        payload = program.send(src_vid, src_val, edge_val, edge_dst, gs)
+        return edge_dst, payload, egate, ovf_edges
+
+    def sender_combine(dst, payload, valid):
+        # segment_combine kernel: one blocked segmented fold per partition
+        # over the stably dst-sorted stream; the fold's tile carry runs
+        # along one partition's stream, so partitions are not fused
+        key = torch.where(valid, dst, INT32_MAX)
+        order = torch.argsort(key, dim=1, stable=True)
+        ks = torch.gather(key, 1, order)
+        ps = _take(payload, order)
+        vs = torch.gather(valid, 1, order)
+        outs = [kbackend.sorted_segment_fold(ks[p], ps[p], vs[p], op)
+                for p in range(dst.shape[0])]
+        folded = torch.stack([o[0] for o in outs])
+        is_last = torch.stack([o[1] for o in outs])
+        return torch.where(is_last, ks, -1), folded, is_last
+
+    def route(dst, payload, valid, cap, Np, presorted):
+        b_dst, b_pay, b_val, ovf = connector.bucket_by_owner(
+            dst, payload, valid, n_parts, cap,
+            sort_by_dst=(plan.connector == "partitioning_merging"),
+            partition=plan.partition, capacity=Np, presorted=presorted)
+        r_dst, r_pay, r_val = connector.exchange_emulated(b_dst, b_pay,
+                                                          b_val)
+        P = dst.shape[0]
+        flat = lambda a: a.reshape((P, -1) + a.shape[3:])
+        return flat(r_dst), flat(r_pay), flat(r_val), ovf.sum()
+
+    def superstep(vert: VertexRel, msg: MsgRel, gs: GlobalState,
+                  layout=None):
+        """``layout`` (full-outer plans): the gather layout of
+        ``kbackend.plan_edge_layout`` as tensors on the graph's device
+        (``driver.plan_gather_layout``). The csr_spmv kernel needs it, so
+        a full-outer superstep on CUDA tensors raises without it; the
+        plain gather on CPU tensors ignores it."""
+        kbackend.resolve(plan.kernel_impl, vert.vid.device)
+        P, Np = vert.vid.shape
+        dev = vert.vid.device
+        i32 = lambda x: x.to(torch.int32)
+        # 1-2. receiver group-by + join + select (D1)
+        combined, has_msg = receiver_groupby(msg, Np)
+        out, active, frontier = run_compute(vert, combined, has_msg, gs)
+        if out.mutates():
+            raise NotImplementedError(
+                "compute returned graph mutations: they come with the "
+                "port's mutation slice")
+        # 3. vertex updates (D2)
+        value, halt, gate, agg = apply_updates(vert, out, active, frontier)
+        # 4. message generation + sender combine + exchange (D3/D7)
+        dst, payload, valid, ovf_edges = gen_messages(vert, value, gate, gs,
+                                                      layout)
+        presorted = False
+        ovf_pack = torch.zeros((), dtype=torch.int32, device=dev)
+        if plan.sender_combine:
+            dst, payload, valid = sender_combine(dst, payload, valid)
+            presorted = True      # the sorted fold leaves dst ascending
+            capc = n_parts * ec.bucket_cap
+            if capc < dst.shape[1]:
+                dst, payload, valid, ovf_pack = compact_combined(
+                    dst, payload, valid, capc)
+        r_dst, r_pay, r_val, ovf = route(dst, payload, valid, ec.bucket_cap,
+                                         Np, presorted)
+        # 5. global state. Overflow is counted PER SOURCE (bucket /
+        # frontier / mutation / edge) so the driver doubles only the
+        # capacity that overflowed.
+        msg_count = i32(r_val.sum())
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        overflow = torch.stack([
+            i32(ovf) + i32(ovf_pack),
+            i32(frontier[2].sum()) if frontier is not None else zero,
+            zero,
+            i32(ovf_edges)])
+        active_count = i32(active.sum())
+        if agg is not None:
+            contrib, mask = agg
+            agg_val = torch.where(mask[..., None], contrib, 0.0) \
+                .reshape(-1, program.agg_dims).sum(0)
+        else:
+            agg_val = gs.aggregate
+        halt_all = (halt | (vert.vid < 0)).all()
+        g_halt = halt_all & (msg_count == 0)
+        new_vert = VertexRel(vid=vert.vid, halt=halt, value=value,
+                             edge_src=vert.edge_src, edge_dst=vert.edge_dst,
+                             edge_val=vert.edge_val)
+        new_msg = MsgRel(dst=r_dst, payload=r_pay, valid=r_val)
+        new_gs = GlobalState(
+            halt=g_halt | program.is_converged(gs),
+            aggregate=agg_val.to(torch.float32).reshape(
+                gs.aggregate.shape),
+            superstep=gs.superstep + 1,
+            overflow=gs.overflow + overflow,
+            active_count=active_count,
+            msg_count=msg_count)
+        return new_vert, new_msg, new_gs
+
+    return superstep

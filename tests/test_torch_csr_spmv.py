@@ -1,0 +1,118 @@
+"""The port's row-blocked edge gather (the D3 send gather) and its layout
+against the JAX reference on the CPU: the layout arrays element for
+element, and the engine gather exactly, +-inf, NaN and -1 lanes
+included. Also the device-based kernel choice of kernels/backend.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import backend as j_backend
+from repro.kernels.csr_spmv import ops as j_ops
+from repro_torch.kernels import backend as t_backend
+from repro_torch.kernels.csr_spmv import (edge_gather, edge_gather_cuda,
+                                          edge_gather_ref, layout_capacity,
+                                          plan_layout, plan_layout_fixed)
+
+
+def _edges(n_rows, E, seed, invalid=0.1):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_rows, E).astype(np.int32)
+    src[rng.random(E) < invalid] = -1
+    return src
+
+
+@pytest.mark.parametrize("n_rows,E,bm,br", [(1, 3, 512, 256),
+                                            (300, 1000, 512, 256),
+                                            (5000, 20000, 512, 256),
+                                            (700, 900, 64, 32)])
+def test_layout_identical_to_reference(n_rows, E, bm, br):
+    src = _edges(n_rows, E, seed=E)
+    kw = dict(block_m=bm, block_r=br)
+    for a, b in zip(plan_layout(src, n_rows, **kw),
+                    j_ops.plan_layout(src, n_rows, **kw)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for a, b in zip(plan_layout_fixed(src, n_rows, **kw),
+                    j_ops.plan_layout_fixed(src, n_rows, **kw)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert layout_capacity(E, n_rows, **kw) == \
+        j_ops.layout_capacity(E, n_rows, **kw)
+
+
+def test_engine_layout_identical_to_reference():
+    rng = np.random.default_rng(4)
+    edge_src = rng.integers(-1, 60, (4, 333)).astype(np.int32)
+    for a, b in zip(t_backend.plan_edge_layout(edge_src, 60),
+                    j_backend.plan_edge_layout(edge_src, 60)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("P,Np,Ep,V", [(4, 73, 400, 1), (4, 73, 400, 2),
+                                       (2, 300, 2000, 3)])
+def test_engine_gather_equals_reference_kernel_path(P, Np, Ep, V):
+    """The port's edge_gather_values (plain on CPU) == the reference's
+    kernel path (Pallas in interpret mode, class channel for the
+    non-finite values), exactly."""
+    rng = np.random.default_rng(P * Np + V)
+    values = rng.normal(size=(P, Np, V)).astype(np.float32)
+    pick = rng.random((P, Np, V))
+    values[pick < 0.05] = np.inf
+    values[(pick >= 0.05) & (pick < 0.1)] = -np.inf
+    values[(pick >= 0.1) & (pick < 0.15)] = np.nan
+    edge_src = rng.integers(0, Np, (P, Ep)).astype(np.int32)
+    edge_src[rng.random((P, Ep)) < 0.1] = -1
+    perm, tile_row = t_backend.plan_edge_layout(edge_src, Np)
+    got = t_backend.edge_gather_values(
+        torch.from_numpy(values), torch.from_numpy(edge_src),
+        (torch.from_numpy(perm), torch.from_numpy(tile_row))).numpy()
+    want = j_backend.edge_gather_values(
+        jnp.asarray(values), jnp.asarray(edge_src),
+        (jnp.asarray(perm), jnp.asarray(tile_row)), impl_r="pallas")
+    assert np.array_equal(got, np.asarray(want), equal_nan=True)
+    assert (got[np.broadcast_to((edge_src < 0)[..., None],
+                                got.shape)] == 0).all()
+
+
+def test_plain_gather_scales_and_masks():
+    values = torch.tensor([[1.0, -2.0], [float("inf"), float("nan")]])
+    src = torch.tensor([1, -1, 0], dtype=torch.int32)
+    ev = torch.tensor([1.0, 5.0, 3.0])
+    out = edge_gather_ref(values, src, ev)
+    assert out[0, 0] == float("inf") and torch.isnan(out[0, 1])
+    assert torch.equal(out[1], torch.zeros(2))
+    assert torch.equal(out[2], torch.tensor([3.0, -6.0]))
+    torch.testing.assert_close(edge_gather(values, src, ev, None), out,
+                               rtol=0, atol=0, equal_nan=True)
+
+
+def test_raw_kernel_wrapper_refuses_cpu_tensors():
+    values = torch.zeros((4, 1))
+    src = torch.zeros(4, dtype=torch.int32)
+    perm = torch.full((512,), -1, dtype=torch.int32)
+    tile_row = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        edge_gather_cuda(values, src, None, perm, tile_row)
+
+
+def test_wrapper_off_the_cpu_needs_the_layout():
+    """Off the CPU the gather is the kernel, so a missing layout raises
+    instead of falling back to a plain gather."""
+    values = torch.zeros((4, 1), device="meta")
+    src = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="layout"):
+        edge_gather(values, src, None, None)
+    with pytest.raises(ValueError, match="layout"):
+        t_backend.edge_gather_values(values[None], src[None], None)
+
+
+def test_resolve_is_device_based():
+    assert t_backend.resolve("auto", "cpu") == "ref"
+    assert t_backend.resolve("ref", "cpu") == "ref"
+    assert t_backend.resolve("auto", "cuda") == "cuda"
+    assert t_backend.resolve("cuda", "cuda:0") == "cuda"
+    with pytest.raises(ValueError):
+        t_backend.resolve("cuda", "cpu")
+    with pytest.raises(ValueError):
+        t_backend.resolve("ref", "cuda")
+    with pytest.raises(ValueError):
+        t_backend.resolve("pallas", "cpu")

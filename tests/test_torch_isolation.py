@@ -1,0 +1,62 @@
+"""The port stands alone: it imports torch and numpy, never JAX and never
+the JAX package (``repro``) — checked by importing it with JAX made
+unimportable, and by scanning its sources and chip_smoke.py."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
+           "repro_torch.kernels", "repro_torch.kernels.backend",
+           "repro_torch.kernels.build", "repro_torch.kernels.csr_spmv",
+           "repro_torch.kernels.segment_combine", "repro_torch.planner"]
+
+
+def test_imports_with_jax_unimportable():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "sys.path.insert(0, sys.argv[1])\n"
+            "import chip_smoke\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_jax_or_repro_import_in_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: {name}"
+
+
+def test_kernels_are_cuda_sources_in_the_port():
+    """Each kernel of the slice is a CUDA source of the port, with its
+    note on what it replaces."""
+    for name, replaces in (("segment_combine", "segment_combine_pallas"),
+                           ("csr_spmv", "edge_gather_pallas")):
+        src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert "__global__" in src and replaces in src
+        assert 'extern "C"' in src
