@@ -6,29 +6,66 @@
 Phases, each of which raises on failure (so the script exits non-zero
 and never prints its last line):
 
-1. device: the card's name and power limit; the kernels' build time.
+1. device: the card's name and power limit; the build time of all four
+   kernels (one nvcc per source, all at once).
 2. kernel parity: each CUDA kernel against its plain torch version on the
-   same CUDA tensors — sum/min/max, D = 1 and 2, ragged tiles, all-invalid
-   streams, NaN/+-inf payloads, int32-max keys, and the main path's
-   shapes. The fold must match bit for bit (NaN positions matched); the
-   gather exactly, NaN positions matched.
-3. main path at the shape of LDBC Graphalytics' graph500-<scale> (Graph500
-   R-MAT, edge factor 16, P = 4 partitions on one card): PageRank
-   (full_outer, 15 iterations) and SSSP from vertex 0 (left_outer) through
-   load_graph -> run_host -> gather_values, held to a scipy float64
-   power iteration (rtol 1e-4) and to scipy's unweighted shortest paths
-   (exact). Both kernels' launch counts over this phase must be > 0.
+   same CUDA tensors. The fold (sum/min/max, D = 1 and 2, ragged tiles,
+   all-invalid streams, NaN/+-inf payloads, int32-max keys, the main
+   path's shapes) must match bit for bit, the gather exactly. Flash
+   attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
+   bf16, causal) and small cases (f32 and bf16, causal or not, hd 32/64/
+   128, ragged S, Sq < Sk, GQA through strided views); the grouped matmul
+   at the prefill (T 65,536 rows, d 2048, f 1408 and back, 64 groups of
+   which 60 live) and decode (T 32) shapes, empty groups, one group
+   holding every row, f32 cases. Tolerance in the working dtype: bf16
+   2**-6 |want| + 1e-3 (two units in its last place), f32 1e-5 |want| +
+   2e-5.
+3. graph path at the shape of LDBC Graphalytics' graph500-<scale>
+   (Graph500 R-MAT, edge factor 16, P = 4 partitions on one card):
+   PageRank (full_outer, 15 iterations) and SSSP from vertex 0
+   (left_outer) through load_graph -> run_host -> gather_values, held to
+   a scipy float64 power iteration (rtol 1e-4) and to scipy's unweighted
+   shortest paths (exact). The counts are set to 0 before the path and
+   read after it: the fold's and the gather's must be > 0.
 4. CC and PageRank at webmap-tiny's shape (rmat 20k/240k) on the card and
    through the port's plain path on the CPU: CC equal, PageRank within
    rtol 1e-5.
-5. timings at the main path's shapes: kernel, plain and library-call ms
-   (CUDA events, median of 20 after warm-up) beside the bound ms.
+5. graph kernels' timings at the graph path's shapes: kernel, plain and
+   library-call ms (CUDA events, median of 20 after warm-up) beside the
+   bound ms.
 6. profile: device time by kernel (torch.profiler) for the fold's three
    launches and for one PageRank and one SSSP superstep, with the device
    busy share of the wall time; ``--profile-out PATH`` also writes the
    full profiler tables to PATH.
+7. reduced qwen2-moe (float32, sort dispatch), the same weights served on
+   the card (kernels) and on the CPU (plain versions), TF32 off: greedy
+   ids equal, logits within atol 1e-4.
+8. serving path: qwen2-moe-a2.7b at full width (24 layers, d 2048, 60
+   experts padded to 64, top-4, bf16, random weights from a seeded
+   generator on the card) with dispatch="sort", through
+   repro_torch.launch.serve.serve: batch 8, prompt 2048, 32 new tokens.
+   The counts are set to 0 before the serve call and read after it: the
+   flash-attention and grouped-matmul counts must be > 0. Logits finite,
+   ids in range; layer 0's attention and MoE sublayers through the
+   kernels vs the plain versions on the card (relative L2 <= 2**-7);
+   decode vs a prefill over the prompt and the tokens generated before
+   the last step: the K/V the decode steps wrote (layer 0 relative L2 <=
+   2**-7, every layer <= 0.5) and the last step's logits (relative L2 <=
+   0.5, bf16 drift through 24 random layers; see teacher_forced_check).
+   Prints serve()'s prefill ms, decode ms a token and tokens/s, the
+   same warm, and the peak of torch.cuda.max_memory_allocated. Then the
+   full width cut to 2 layers in float32: every decode step's logits vs
+   the teacher-forced prefill, relative L2 <= 1e-4 and the same ids.
+9. serving kernels' timings at the serving path's shapes (flash: SDPA
+   as the library yardstick; grouped matmul: torch._grouped_mm where
+   this torch has it), prefill and decode for the grouped matmul: its
+   kernel alone over a ready tile map, and the model's entry point with
+   the tile map built on the card (wrapper_ms).
 
-The last line is {"ok": true, "device": {...}}.
+Before its last line it prints the card's nvidia-smi line and one JSON
+line with every kernel's name, route, source, the TPU kernel it
+replaces, its launches on its main path, max abs err, kernel / plain /
+bound / library ms. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -52,7 +89,19 @@ FOLD_SRC = "src/repro_torch/kernels/csrc/segment_combine.cu"
 GATHER_SRC = "src/repro_torch/kernels/csrc/csr_spmv.cu"
 FOLD_REPLACES = "src/repro/kernels/segment_combine/segment_combine.py:80"
 GATHER_REPLACES = "src/repro/kernels/csr_spmv/csr_spmv.py:38"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+GMM_SRC = "src/repro_torch/kernels/csrc/moe_gmm.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:75"
+GMM_REPLACES = "src/repro/kernels/moe_gmm/moe_gmm.py:31"
 P = 4
+# the serving path's shapes: qwen2-moe-a2.7b at batch 8, prompt 2048; its
+# prefill's attention (B*H, S, hd) and its grouped matmul's routed rows
+# (prefill B*S*top_k, decode B*top_k) over 64 expert groups, 60 live
+SERVE_SHAPE = dict(BH=128, S=2048, hd=128, T_pre=65536, T_dec=32, d=2048,
+                   f=1408, E=64, live=60)
+# the kernels each main path must launch
+GRAPH_KERNELS = ("segment_combine", "csr_spmv")
+SERVING_KERNELS = ("flash_attention", "moe_gmm")
 
 
 def log(*a):
@@ -452,6 +501,510 @@ def profile_phase(vert, n, out) -> dict:
     return res
 
 
+# ------------------------------------------------------------- serving
+
+def close_in_dtype(got, want, what: str) -> float:
+    """Kernel vs plain in the working dtype. bfloat16 keeps 8 significant
+    bits, so the two round a value to neighbouring bf16 numbers when their
+    float32 sums (taken in another order) straddle a rounding boundary:
+    allowed |got - want| <= 2**-6 |want| + 1e-3 (two units in the last
+    place). float32: 2e-5 + 1e-5 |want| (sum order only)."""
+    import torch
+    g, w = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        tol = 2.0 ** -6 * w.abs() + 1e-3
+    else:
+        tol = 1e-5 * w.abs() + 2e-5
+    bad = int(((g - w).abs() > tol).sum())
+    err = max_abs_err(g, w)
+    if bad or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: kernel != plain at {bad} elements "
+                             f"(max abs err {err})")
+    return err
+
+
+def flash_parity() -> float:
+    """flash_attention (kernel) vs attention_ref on the card, over the
+    serving path's prefill shape and small edge cases."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rnd = lambda *s, dt: torch.randn(*s, generator=g, device="cuda") \
+        .to(dt)
+    err = 0.0
+    # (BH, Sq, Sk, hd, causal, dtype): the main path's shape first
+    sh = SERVE_SHAPE
+    cases = [(sh["BH"], sh["S"], sh["S"], sh["hd"], True, torch.bfloat16)]
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in (32, 64, 128):
+            for causal in (True, False):
+                cases += [(3, 64, 64, hd, causal, dt),
+                          (2, 100, 100, hd, causal, dt),     # ragged
+                          (2, 37, 300, hd, causal, dt),      # Sq < Sk
+                          (1, 1, 129, hd, causal, dt)]       # one query
+    for BH, Sq, Sk, hd, causal, dt in cases:
+        q, k, v = rnd(BH, Sq, hd, dt=dt), rnd(BH, Sk, hd, dt=dt), \
+            rnd(BH, Sk, hd, dt=dt)
+        err = max(err, close_in_dtype(
+            flash_attention(q, k, v, causal=causal),
+            attention_ref(q, k, v, causal=causal),
+            f"flash_attention BH={BH} Sq={Sq} Sk={Sk} hd={hd} "
+            f"causal={causal} {dt}"))
+    # GQA through ops, (B, S, H, hd) strided views of one projection
+    for dt in (torch.float32, torch.bfloat16):
+        for H, KV in ((16, 16), (8, 2), (4, 1)):
+            B, S, hd = 2, 150, 128
+            qkv = rnd(B, S, H + 2 * KV, hd, dt=dt)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+            err = max(err, close_in_dtype(
+                fa_ops.flash_attention(q, k, v, causal=True),
+                fa_ops.attention_gqa_ref(q, k, v, causal=True),
+                f"flash_attention GQA H={H} KV={KV} {dt}"))
+    return err
+
+
+def gmm_case(T: int, d: int, f: int, E: int, live: int, dt, seed: int,
+             one_group: bool = False):
+    """Expert-sorted tokens, (E, d, f) weights, and group sizes spread
+    over the first ``live`` experts (the rest empty, as the pad experts)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, d, generator=g, device="cuda").to(dt)
+    w = (torch.randn(E, d, f, generator=g, device="cuda") / d ** 0.5).to(dt)
+    if one_group:
+        sizes = torch.zeros(E, dtype=torch.int64, device="cuda")
+        sizes[min(3, E - 1)] = T
+    else:
+        eid = torch.randint(0, live, (T,), generator=g, device="cuda")
+        sizes = torch.bincount(eid, minlength=E)
+    return x, w, sizes
+
+
+def gmm_parity() -> float:
+    from repro_torch.kernels.moe_gmm import (grouped_matmul,
+                                             grouped_matmul_ref)
+    import torch
+    err = 0.0
+    bf = torch.bfloat16
+    sh = SERVE_SHAPE
+    T_pre, T_dec, d, f, E, live = (sh[k] for k in ("T_pre", "T_dec", "d",
+                                                  "f", "E", "live"))
+    cases = [(T_pre, d, f, E, live, bf, False),       # prefill, w_gate/up
+             (T_pre, f, d, E, live, bf, False),       # prefill, w_down
+             (T_dec, d, f, E, live, bf, False),       # decode
+             (T_dec, f, d, E, live, bf, False),
+             (5000, 256, 136, 8, 5, bf, False),        # empty groups
+             (4096, 128, 64, 6, 6, bf, True),          # one group
+             (7, 64, 64, 4, 4, bf, False),             # T < one tile
+             (300, 64, 128, 4, 4, torch.float32, False),
+             (17, 16, 32, 3, 2, torch.float32, False),
+             (1000, 128, 64, 16, 8, torch.float32, False),
+             (500, 48, 40, 5, 5, torch.float32, True)]
+    for i, (T, d, f, E, live, dt, one) in enumerate(cases):
+        x, w, sizes = gmm_case(T, d, f, E, live, dt, 100 + i, one)
+        err = max(err, close_in_dtype(
+            grouped_matmul(x, w, sizes), grouped_matmul_ref(x, w, sizes),
+            f"moe_gmm T={T} d={d} f={f} E={E} live={live} {dt}"))
+    return err
+
+
+def qwen_config(dispatch: str = "sort"):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-moe-a2.7b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch=dispatch))
+
+
+def greedy(cfg, params, prompts, max_new: int):
+    """Prefill + greedy decode through the port's step functions, on the
+    device of ``params``. -> (ids (B, max_new), logits (B, max_new, V))."""
+    import torch
+    from repro_torch.models import make_decode_step, make_prefill_step
+    S = prompts.shape[1]
+    tok, caches, logits = make_prefill_step(cfg, max_len=S + max_new)(
+        params, {"tokens": prompts})
+    decode = make_decode_step(cfg)
+    ids, out = [tok], [logits]
+    for i in range(max_new - 1):
+        tok, caches, logits = decode(params, tok, caches, S + i)
+        ids.append(tok)
+        out.append(logits)
+    return torch.cat(ids, 1), torch.cat(out, 1)
+
+
+def reduced_card_vs_cpu():
+    """The reduced qwen2-moe (float32, sort dispatch) with the same
+    weights on the card (kernels) and the CPU (plain versions): greedy
+    ids equal, logits within atol 1e-4 (float32 through 4 layers summed
+    in another order; logits of magnitude ~1)."""
+    import copy
+    import torch
+    from repro_torch.models import init_params
+    cfg = qwen_config().reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 77), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(4))
+    ids_c, log_c = greedy(cfg, params, prompts, 8)
+    ids_g, log_g = greedy(cfg, copy.deepcopy(params).to("cuda"),
+                          prompts.cuda(), 8)
+    err = max_abs_err(log_g.cpu(), log_c)
+    if not torch.equal(ids_g.cpu(), ids_c) or err > 1e-4:
+        raise AssertionError(f"reduced model: card ids {ids_g.tolist()} vs "
+                             f"CPU {ids_c.tolist()}, logits max abs err "
+                             f"{err}")
+    log(f"reduced qwen2-moe (f32, sort): card ids == CPU ids "
+        f"{ids_c[0].tolist()}; logits max abs err {err:.3e}")
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def one_layer_check(params, cfg, prompts) -> dict:
+    """Layer 0 of the full model on the prompts' hidden states: the
+    attention sublayer and the MoE sublayer, each on one input, through
+    the kernels and through the plain versions on the card (patched into
+    the model's modules). Tolerance: relative L2 error <= 2**-7 (one unit
+    in bf16's last place): the two differ only where bf16 rounds float32
+    sums taken in another order."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import grouped_matmul_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.models.attention import apply_attention
+    from repro_torch.models.layers import apply_norm, embed
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.param import layer_slice
+    p = layer_slice(params["stages"][0], 0)["sub0"]
+    with torch.no_grad():
+        x = embed(params["embed"], prompts)
+        h = apply_norm(p["norm1"], x, cfg.norm)
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        attn = lambda: apply_attention(p["attn"], h, cfg, local=False,
+                                       positions=pos)[0]
+        a_k = attn()
+        with mock.patch.object(fa_ops, "flash_attention",
+                               fa_ops.attention_gqa_ref):
+            a_p = attn()
+        h2 = apply_norm(p["norm2"], x + a_k, cfg.norm)
+        moe = lambda: apply_moe(p["moe"], h2, cfg)[0]
+        m_k = moe()
+        with mock.patch.object(gmm_ops, "grouped_matmul",
+                               grouped_matmul_ref):
+            m_p = moe()
+    out = {"attention_rel_l2": rel_l2(a_k, a_p),
+           "attention_max_abs_err": max_abs_err(a_k.float(), a_p.float()),
+           "moe_rel_l2": rel_l2(m_k, m_p),
+           "moe_max_abs_err": max_abs_err(m_k.float(), m_p.float())}
+    for k in ("attention_rel_l2", "moe_rel_l2"):
+        if not out[k] <= 2.0 ** -7:
+            raise AssertionError(f"one layer, kernels vs plain: {out}")
+    return out
+
+
+def _forced_prefill(params, cfg, seq):
+    """Last-position logits and S-slot caches of a prefill over ``seq``."""
+    import torch
+    from repro_torch.models import forward_prefill
+    from repro_torch.models.layers import unembed
+    with torch.no_grad():
+        h, caches = forward_prefill(params, {"tokens": seq}, cfg)
+        return unembed(params["embed"], h)[:, 0], caches
+
+
+def teacher_forced_check(params, cfg, res) -> dict:
+    """Decode against a prefill over the prompt plus the tokens generated
+    before the last decode step (the same positions and weights, through
+    the flash kernel and the prefill-sized grouped matmul).
+
+    - K/V caches: the slots the decode steps wrote (prompt_len ..
+      prompt_len + n - 1) against the prefill's K/V at those positions.
+      Layer 0's K/V depend only on the token and its position, so they
+      agree to bf16 rounding: relative L2 <= 2**-7 (a clamped or misplaced
+      write gives ~1). Deeper layers carry the drift below; each <= 0.5.
+    - Logits of the last decode step: relative L2 <= 0.5. Both paths run
+      in bf16 through 24 layers of random weights and round at other
+      places (decode rounds the softmax weights to bf16 before the PV
+      product, as the JAX package does; the flash kernel keeps them at
+      ~16 bits), and a top-4 expert choice on a near tie flips between
+      the two, which moves that token's MoE output as a whole. Logits
+      unrelated to each other give ~1.41. For scale, the same prefill
+      through the plain versions instead of the kernels is printed
+      beside it (``floor_rel_l2``)."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import grouped_matmul_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    S = res.prompts.shape[1]
+    n = res.tokens.shape[1] - 1
+    seq = torch.cat([res.prompts, torch.from_numpy(res.tokens[:, :n])
+                     .to(res.prompts.device)], dim=1)
+    forced, caches = _forced_prefill(params, cfg, seq)
+    cache_err = []
+    for st_dec, st_pre in zip(res.caches, caches):
+        for sub, kv in st_pre.items():
+            for name in ("k", "v"):
+                want = kv[name][:, :, S:S + n]
+                got = st_dec[sub][name][:, :, S:S + n]
+                cache_err.append([rel_l2(g, w) for g, w in zip(got, want)])
+    del caches
+    layer_err = [max(e) for e in zip(*cache_err)]
+    with mock.patch.object(fa_ops, "flash_attention",
+                           fa_ops.attention_gqa_ref), \
+            mock.patch.object(gmm_ops, "grouped_matmul",
+                              grouped_matmul_ref):
+        plain, caches = _forced_prefill(params, cfg, seq)
+    del caches
+    dec = res.logits[:, n]
+    out = {"rel_l2": rel_l2(dec, forced),
+           "max_abs_err": max_abs_err(dec.float(), forced.float()),
+           "argmax_equal": int((dec.argmax(-1) == forced.argmax(-1)).sum()),
+           "floor_rel_l2": rel_l2(plain, forced),
+           "cache_rel_l2_layer0": layer_err[0],
+           "cache_rel_l2_max": max(layer_err),
+           "rows": dec.shape[0], "positions": seq.shape[1]}
+    if not (out["cache_rel_l2_layer0"] <= 2.0 ** -7
+            and out["cache_rel_l2_max"] <= 0.5 and out["rel_l2"] <= 0.5):
+        raise AssertionError(f"decode vs teacher-forced prefill: {out}")
+    return out
+
+
+def full_width_f32_teacher_forced() -> dict:
+    """qwen2-moe-a2.7b at full width cut to 2 layers, in float32 (TF32
+    off), sort dispatch, on the card: every decode step's logits against a
+    prefill over the prompt plus the tokens generated so far. Float32
+    leaves only the sum order between the two paths, so: relative L2 <=
+    1e-4 and the same greedy ids."""
+    import torch
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(qwen_config(), num_layers=2, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    params = init_params(cfg, g, "cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 300), generator=g,
+                            device="cuda", dtype=torch.int32)
+    new = 5
+    ids, logits = greedy(cfg, params, prompts, new)
+    worst = 0.0
+    for i in range(1, new):
+        seq = torch.cat([prompts, ids[:, :i]], dim=1)
+        forced, caches = _forced_prefill(params, cfg, seq)
+        del caches
+        worst = max(worst, rel_l2(logits[:, i], forced))
+        if not torch.equal(forced.argmax(-1).to(torch.int32), ids[:, i]):
+            raise AssertionError(f"f32 full width: decode step {i}'s id "
+                                 "differs from the teacher-forced prefill")
+    if not worst <= 1e-4:
+        raise AssertionError(f"f32 full width: decode vs teacher-forced "
+                             f"prefill rel L2 {worst}")
+    return {"layers": 2, "batch": 2, "prompt_len": 300, "steps": new - 1,
+            "rel_l2_max": worst}
+
+
+def serving_main_path(batch: int, prompt_len: int, max_new: int):
+    """qwen2-moe-a2.7b (sort dispatch, bf16, random weights from a seeded
+    generator on the card) through repro_torch.launch.serve.serve."""
+    import torch
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.launch.serve import serve
+    cfg = qwen_config()
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS.values():
+        c.reset()
+    res = serve(cfg, preset="full", batch=batch, prompt_len=prompt_len,
+                max_new=max_new, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(batch=batch, prompt_len=prompt_len, max_new=max_new,
+                 prefill_ms=res.prefill_s * 1e3,
+                 decode_ms_per_token=res.decode_s_per_token * 1e3,
+                 prefill_tokens_per_s=batch * prompt_len / res.prefill_s,
+                 decode_tokens_per_s=batch / res.decode_s_per_token,
+                 max_memory_allocated_gb=peak / 1e9)
+    return cfg, res, launches, stats
+
+
+def warm_serving_timings(params, cfg, prompts, steps: int = 8) -> dict:
+    """serve() times its first prefill and decode steps, which include the
+    first calls' set-up (library handles, allocator growth). Here the same
+    shapes again, warm: one prefill and the median of ``steps`` decode
+    steps, host clock around a device sync."""
+    import torch
+    from repro_torch.models import make_decode_step, make_prefill_step
+    B, S = prompts.shape
+    prefill = make_prefill_step(cfg, max_len=S + steps)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, caches, _ = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        tok, caches, _ = decode(params, tok, caches, S + i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dec_ms = statistics.median(walls)
+    return dict(prefill_ms=prefill_ms, decode_ms_per_token=dec_ms,
+                prefill_tokens_per_s=B * S / prefill_ms * 1e3,
+                decode_tokens_per_s=B / dec_ms * 1e3,
+                decode_ms_each=walls)
+
+
+def profile_serving(params, cfg, prompts, out) -> dict:
+    """Where the serving time goes: device time by kernel for one prefill
+    of the serving batch and for one decode step after it."""
+    from repro_torch.models import make_decode_step, make_prefill_step
+    S = prompts.shape[1]
+    prefill = make_prefill_step(cfg, max_len=S + 1)
+    decode = make_decode_step(cfg)
+    tok, caches, _ = prefill(params, {"tokens": prompts})
+    res = {"prefill": profile_kernels(
+        lambda: prefill(params, {"tokens": prompts}), 1, out,
+        "serving prefill (batch x prompt)")}
+    res["decode_step"] = profile_kernels(
+        lambda: decode(params, tok, caches, S), 3, out,
+        "serving decode step")
+    return res
+
+
+def check_serving_output(cfg, res):
+    import torch
+    if not bool(torch.isfinite(res.logits.float()).all()):
+        raise AssertionError("serving: non-finite logits")
+    ids = res.tokens
+    if ids.shape != (res.prompts.shape[0], res.logits.shape[1]) or \
+            not ((ids >= 0) & (ids < cfg.vocab_size)).all():
+        raise AssertionError(f"serving: ids out of range {ids.shape}")
+    if not np.array_equal(res.logits.argmax(-1).cpu().numpy(), ids):
+        raise AssertionError("serving: ids are not the logits' argmax")
+
+
+# H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate
+BF16_FLOP_PER_S = 989e12
+
+
+def flash_timing(launches: int) -> dict:
+    """flash_attention at the serving prefill's shape: B*H = 128, S =
+    2048, hd = 128, bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    BH, S, hd = (SERVE_SHAPE[k] for k in ("BH", "S", "hd"))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(BH, S, hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    run_k = lambda: flash_attention(q, k, v, causal=True)
+    run_p = lambda: attention_ref(q, k, v, causal=True)
+    q4, k4, v4 = (t.view(1, BH, S, hd) for t in (q, k, v))
+    run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=True)
+    got, want = run_k(), run_p()
+    err = close_in_dtype(got, want, "flash_attention timing inputs")
+    ms, plain_ms, lib_ms = time_ms(run_k), time_ms(run_p, reps=5), \
+        time_ms(run_l)
+    # visible (query, key) pairs S(S+1)/2 a head, 2 hd FLOP each for QK^T
+    # and for PV; q, k, v read and out written once
+    flop = 2 * 2 * hd * (S * (S + 1) // 2) * BH
+    nbytes = 4 * BH * S * hd * 2
+    bound_ms = max(flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S) * 1e3
+    return dict(name="flash_attention", route="cuda", source=FLASH_SRC,
+                replaces=FLASH_REPLACES, launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if flop / BF16_FLOP_PER_S >
+                nbytes / MEM_BYTES_PER_S else "bytes",
+                library_ms=lib_ms,
+                library="F.scaled_dot_product_attention(is_causal=True)",
+                shape=dict(BH=BH, S=S, hd=hd, dtype="bfloat16"),
+                flop=flop, bytes=nbytes)
+
+
+def grouped_mm_library(x, w, sizes):
+    """torch._grouped_mm on the same function, where this torch has it
+    (a yardstick only; the port never calls it) -> callable or None."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm absent"
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    call = lambda: fn(x, w, offs=offs)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except Exception as e:  # a yardstick that does not run is reported
+        return None, f"torch._grouped_mm failed: {type(e).__name__}: {e}"
+    return call, "torch._grouped_mm"
+
+
+def gmm_timing_one(T: int, touched_from_routing: bool, seed: int) -> dict:
+    import torch
+    from repro_torch.kernels.moe_gmm import (grouped_matmul,
+                                             grouped_matmul_cuda,
+                                             grouped_matmul_ref, tile_map)
+    d, f, E, live = (SERVE_SHAPE[k] for k in ("d", "f", "E", "live"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, d, f, generator=g, device="cuda") / d ** 0.5) \
+        .to(torch.bfloat16)
+    if touched_from_routing:
+        # decode: T / 4 tokens, each to 4 distinct of the live experts
+        eid = torch.stack([torch.randperm(live, generator=g,
+                                          device="cuda")[:4]
+                           for _ in range(T // 4)]).reshape(-1)
+    else:
+        eid = torch.randint(0, live, (T,), generator=g, device="cuda")
+    eid = torch.sort(eid).values
+    sizes = torch.bincount(eid, minlength=E)
+    # the kernel alone over its tile map, as the library call gets its
+    # offsets ready-made; the entry point the model calls (tile map on
+    # the card, then the kernel) is timed beside it as wrapper_ms
+    tiles = tile_map(sizes, T)
+    run_k = lambda: grouped_matmul_cuda(x, w, tiles)
+    run_w = lambda: grouped_matmul(x, w, sizes)
+    run_p = lambda: grouped_matmul_ref(x, w, sizes)
+    err = close_in_dtype(run_k(), run_p(), f"moe_gmm timing inputs T={T}")
+    lib, lib_name = grouped_mm_library(x, w, sizes)
+    ms, plain_ms = time_ms(run_k), time_ms(run_p, reps=5)
+    wrapper_ms = time_ms(run_w)
+    lib_ms = time_ms(lib) if lib is not None else None
+    touched = int((sizes > 0).sum())
+    flop = 2 * T * d * f
+    # tokens read, out written, and the weights of every expert touched
+    nbytes = T * d * 2 + T * f * 2 + touched * d * f * 2
+    t_op, t_b = flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=max(t_op, t_b) * 1e3,
+                bound_by="operations" if t_op > t_b else "bytes",
+                library_ms=lib_ms, library=lib_name, max_abs_err=err,
+                shape=dict(T=T, d=d, f=f, E=E, experts_touched=touched),
+                flop=flop, bytes=nbytes)
+
+
+def gmm_timing(launches: int) -> dict:
+    """moe_gmm at the serving path's shapes: prefill (T = 8 * 2048 * 4
+    routed rows) and decode (T = 8 * 4)."""
+    pre = gmm_timing_one(SERVE_SHAPE["T_pre"], False, 9)
+    dec = gmm_timing_one(SERVE_SHAPE["T_dec"], True, 10)
+    return dict(name="moe_gmm", route="cuda", source=GMM_SRC,
+                replaces=GMM_REPLACES, launches=launches, **pre,
+                decode=dec)
+
+
+def check_launches(path: str, launches: dict, names):
+    for k in names:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the {path} "
+                                 "path")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
@@ -479,8 +1032,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     gather_err = gather_parity("cuda")
     torch.cuda.synchronize()
+    flash_err = flash_parity()
+    torch.cuda.synchronize()
+    gmm_err = gmm_parity()
+    torch.cuda.synchronize()
     log(f"kernel parity: fold bit-exact (max abs err {fold_err}), gather "
-        f"exact (max abs err {gather_err}) in "
+        f"exact (max abs err {gather_err}), flash_attention (max abs err "
+        f"{flash_err}), moe_gmm (max abs err {gmm_err}) in "
         f"{time.perf_counter() - t:.1f} s")
 
     # 3. main path at graph500-<scale>
@@ -496,11 +1054,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in COUNTERS.items()}
     log(f"main path: {json.dumps(stats)}")
-    log(f"main path launches: {json.dumps(launches)}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main "
-                                 "path")
+    log(f"graph path launches: {json.dumps(launches)}")
+    check_launches("graph", launches, GRAPH_KERNELS)
     check_main_path(values, edges, n)
     del values
 
@@ -521,6 +1076,43 @@ def main(argv=None) -> int:
         f"{stats['pagerank']['superstep_median_s']}, sssp "
         f"{stats['sssp']['superstep_median_s']}; data preparation s "
         f"{prep_s}")
+    del vert, edges
+    torch.cuda.empty_cache()
+
+    # 7. reduced qwen2-moe, card vs CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    reduced_card_vs_cpu()
+    log(f"reduced model phase: {time.perf_counter() - t:.1f} s")
+
+    # 8. serving path: qwen2-moe-a2.7b at full width
+    t = time.perf_counter()
+    cfg, res, s_launches, s_stats = serving_main_path(8, 2048, 32)
+    log(f"serving path: {json.dumps(s_stats)}")
+    log(f"serving path launches: {json.dumps(s_launches)}")
+    check_launches("serving", s_launches, SERVING_KERNELS)
+    check_serving_output(cfg, res)
+    log(f"one layer, kernels vs plain on the card: "
+        f"{json.dumps(one_layer_check(res.params, cfg, res.prompts))}")
+    log(f"decode vs teacher-forced prefill: "
+        f"{json.dumps(teacher_forced_check(res.params, cfg, res))}")
+    res.caches = None
+    log(f"serving, warm: "
+        f"{json.dumps(warm_serving_timings(res.params, cfg, res.prompts))}")
+    prof = profile_serving(res.params, cfg, res.prompts, args.profile_out)
+    log(f"serving profile: {json.dumps(prof)}")
+    del res
+    torch.cuda.empty_cache()
+    log(f"full width, 2 layers, float32, decode vs teacher-forced prefill: "
+        f"{json.dumps(full_width_f32_teacher_forced())}")
+    torch.cuda.empty_cache()
+    log(f"serving phase: {time.perf_counter() - t:.1f} s")
+
+    # 9. serving kernels' timings at the main path's shapes
+    kernels += [flash_timing(s_launches["flash_attention"]),
+                gmm_timing(s_launches["moe_gmm"])]
+    torch.cuda.synchronize()
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,12 @@
+"""Architecture registry of the port: importing this package registers
+the configs the port can serve. Each other config of the JAX package
+arrives with the slice that runs it."""
+from repro_torch.configs.base import (AttnConfig, ModelConfig, MoEConfig,
+                                      REGISTRY, SSMConfig, get_config)
+
+from repro_torch.configs import qwen2_moe_a2_7b  # noqa: F401
+
+ALL_ARCHS = tuple(sorted(REGISTRY.keys()))
+
+__all__ = ["AttnConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+           "REGISTRY", "ALL_ARCHS", "get_config"]

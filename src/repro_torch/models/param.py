@@ -1,0 +1,167 @@
+"""Parameter shapes, their initialisation, and the weight carry-across.
+
+Every layer declares its parameters as a nested dict of ``Spec`` leaves
+(shape + initializer), as the JAX package does, without its
+PartitionSpecs: the port runs on one card, and sharding is a later
+slice. ``materialize`` turns the tree into a ``ParamTree`` (an
+``nn.Module`` whose attributes carry the JAX names, so its
+``state_dict`` keys read ``stages.0.sub0.attn.wq``) from an explicit
+``torch.Generator`` on an explicit device. ``params_from_numpy`` builds
+the same module from the JAX parameter tree as numpy arrays, so the
+tests hand both packages the same weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+# a leaf above this many bytes in float32 is drawn one leading slice at a
+# time, so the full model never holds a float32 copy of its experts
+_CHUNK_BYTES = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: tuple
+    init: str = "normal"          # normal | zeros | ones
+    fan_in: Optional[int] = None
+    dtype: Optional[torch.dtype] = None  # overrides the model dtype
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def stack(tree, n: int):
+    """Prepend a layer axis of size n to every Spec."""
+    if is_spec(tree):
+        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape))
+    return {k: stack(v, n) for k, v in tree.items()}
+
+
+class ParamTree(nn.Module):
+    """A nested dict of parameters as a module: ``tree["attn"]["wq"]``
+    and ``tree.attn.wq`` name the same tensor. Parameters carry no
+    gradient: this slice serves."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            elif isinstance(v, list):
+                self.add_module(k, nn.ModuleList(ParamTree(s) for s in v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def layer_slice(tree: ParamTree, i: int) -> dict:
+    """Layer i of a stacked stage: a nested dict of views ``t[i]``."""
+    out = {}
+    for k, v in tree._parameters.items():
+        out[k] = v[i]
+    for k, m in tree._modules.items():
+        out[k] = layer_slice(m, i)
+    return out
+
+
+def _init_leaf(spec: Spec, gen: torch.Generator, device,
+               dtype: torch.dtype) -> torch.Tensor:
+    dt = spec.dtype or dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=device)
+    if spec.init != "normal":
+        raise NotImplementedError(
+            f"init {spec.init!r} belongs to the SSM slice")
+    fan = spec.fan_in or (spec.shape[0] if spec.shape else 1)
+    scale = 1.0 / math.sqrt(max(fan, 1))
+    out = torch.empty(spec.shape, dtype=dt, device=device)
+    n = math.prod(spec.shape)
+    pieces = [out] if n * 4 <= _CHUNK_BYTES or not spec.shape else \
+        list(out)
+    for piece in pieces:
+        piece.copy_(torch.randn(piece.shape, generator=gen,
+                                dtype=torch.float32, device=device) * scale)
+    return out
+
+
+def _materialize(tree, gen, device, dtype):
+    if is_spec(tree):
+        return _init_leaf(tree, gen, device, dtype)
+    if isinstance(tree, list):
+        return [_materialize(t, gen, device, dtype) for t in tree]
+    return {k: _materialize(v, gen, device, dtype) for k, v in tree.items()}
+
+
+def materialize(tree, gen: torch.Generator, device,
+                dtype: torch.dtype) -> ParamTree:
+    """Real parameters, drawn from ``gen`` (a generator on ``device``):
+    normal leaves are N(0, 1) / sqrt(fan_in) in float32, cast to their
+    dtype. The numbers differ from jax.random's for the same seed."""
+    return ParamTree(_materialize(tree, gen, device, dtype))
+
+
+def to_tensor(a, device) -> torch.Tensor:
+    """A copy of a numpy array (bfloat16 from ml_dtypes included) as a
+    tensor."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def tree_from_numpy(tree, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in tree]
+    return to_tensor(tree, device)
+
+
+def _check_against(specs, tree, path="params"):
+    if is_spec(specs):
+        shape = tuple(np.shape(tree))
+        if shape != tuple(specs.shape):
+            raise ValueError(f"{path}: shape {shape}, expected "
+                             f"{tuple(specs.shape)}")
+        return
+    if isinstance(specs, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(specs):
+            raise ValueError(f"{path}: expected a list of {len(specs)}")
+        for i, (s, t) in enumerate(zip(specs, tree)):
+            _check_against(s, t, f"{path}[{i}]")
+        return
+    if not isinstance(tree, dict) or set(tree) != set(specs):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"{path}: keys {got}, expected {sorted(specs)}")
+    for k in specs:
+        _check_against(specs[k], tree[k], f"{path}.{k}")
+
+
+def params_from_numpy(cfg, tree, device="cuda") -> ParamTree:
+    """The JAX package's parameter tree for ``cfg`` as numpy arrays
+    (``{"embed", "final_norm", "stages": [{"sub0": {...}}]}``, each stage
+    stacked on a leading layer axis) -> the port's parameters with the
+    same values, on ``device``. Raises if a name or shape differs from
+    the port's own tree."""
+    from repro_torch.models.model import model_specs
+    _check_against(model_specs(cfg), tree)
+    return ParamTree(tree_from_numpy(tree, device))

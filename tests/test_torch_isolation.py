@@ -12,7 +12,12 @@ PORT = ROOT / "src" / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.kernels", "repro_torch.kernels.backend",
            "repro_torch.kernels.build", "repro_torch.kernels.csr_spmv",
-           "repro_torch.kernels.segment_combine", "repro_torch.planner"]
+           "repro_torch.kernels.segment_combine", "repro_torch.planner",
+           "repro_torch.configs", "repro_torch.kernels.flash_attention",
+           "repro_torch.kernels.flash_attention.ops",
+           "repro_torch.kernels.moe_gmm", "repro_torch.models",
+           "repro_torch.models.attention", "repro_torch.models.moe",
+           "repro_torch.launch.serve"]
 
 
 def test_imports_with_jax_unimportable():
@@ -56,7 +61,9 @@ def test_kernels_are_cuda_sources_in_the_port():
     """Each kernel of the slice is a CUDA source of the port, with its
     note on what it replaces."""
     for name, replaces in (("segment_combine", "segment_combine_pallas"),
-                           ("csr_spmv", "edge_gather_pallas")):
+                           ("csr_spmv", "edge_gather_pallas"),
+                           ("flash_attention", "flash_attention_pallas"),
+                           ("moe_gmm", "grouped_matmul_pallas")):
         src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert "__global__" in src and replaces in src
         assert 'extern "C"' in src
