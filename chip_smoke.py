@@ -7,17 +7,22 @@ Phases, each of which raises on failure (so the script exits non-zero
 and never prints its last line):
 
 1. device: the card's name and power limit; the build time of all four
-   kernels (one nvcc per source, all at once).
+   kernels (one nvcc per source, all at once); per kernel library, the
+   counts of HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in its
+   SASS; the two serving kernels must show HGMMA and UTMALDG.
 2. kernel parity: each CUDA kernel against its plain torch version on the
    same CUDA tensors. The fold (sum/min/max, D = 1 and 2, ragged tiles,
    all-invalid streams, NaN/+-inf payloads, int32-max keys, the main
    path's shapes) must match bit for bit, the gather exactly. Flash
    attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
    bf16, causal) and small cases (f32 and bf16, causal or not, hd 32/64/
-   128, ragged S, Sq < Sk, GQA through strided views); the grouped matmul
-   at the prefill (T 65,536 rows, d 2048, f 1408 and back, 64 groups of
-   which 60 live) and decode (T 32) shapes, empty groups, one group
-   holding every row, f32 cases. Tolerance in the working dtype: bf16
+   128, ragged S, Sq < Sk, a query block whose second warpgroup holds no
+   row, GQA through strided views); the grouped matmul at the prefill (T
+   65,536 rows, d 2048, f 1408 and back, 64 groups of which 60 live) and
+   decode (T 32) shapes, empty groups, one group holding every row, a
+   group of one row, a group that ends mid-tile before a non-empty one, T
+   below one tile, d 1408, sizes summing below and above T, int32 sizes,
+   f32 cases. Tolerance in the working dtype: bf16
    2**-6 |want| + 1e-3 (two units in its last place), f32 1e-5 |want| +
    2e-5.
 3. graph path at the shape of LDBC Graphalytics' graph500-<scale>
@@ -58,9 +63,12 @@ and never prints its last line):
    the teacher-forced prefill, relative L2 <= 1e-4 and the same ids.
 9. serving kernels' timings at the serving path's shapes (flash: SDPA
    as the library yardstick; grouped matmul: torch._grouped_mm where
-   this torch has it), prefill and decode for the grouped matmul: its
-   kernel alone over a ready tile map, and the model's entry point with
-   the tile map built on the card (wrapper_ms).
+   this torch has it). The grouped matmul at prefill in both orientations
+   (w_gate/w_up: d 2048 -> f 1408; w_down: d 1408 -> f 2048) and at
+   decode: the kernel's wrapper alone (ms), the model's entry point
+   (wrapper_ms: one launch, no other op), the host's time to enqueue one
+   entry-point call (host_us, the two tensor maps' encoding included),
+   and at decode the host's time for one tensor-map encode.
 
 Before its last line it prints the card's nvidia-smi line and one JSON
 line with every kernel's name, route, source, the TPU kernel it
@@ -72,6 +80,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -437,7 +446,8 @@ def _device_ms(evt) -> float:
 def profile_kernels(fn, reps: int, out_path, title: str) -> dict:
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler
     with CUDA activity), per call, plus the device busy share of the
-    host wall time. The full table is appended to ``out_path`` if set."""
+    host wall time and the device kernels run a call. The full table is
+    appended to ``out_path`` if set."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -453,6 +463,7 @@ def profile_kernels(fn, reps: int, out_path, title: str) -> dict:
             if _device_ms(e) > 0 and e.device_type.name == "CUDA"]
     kern.sort(key=_device_ms, reverse=True)
     busy_ms = sum(_device_ms(e) for e in kern) / reps
+    kernels = sum(e.count for e in kern) / reps
     if out_path is not None:
         out_path.parent.mkdir(parents=True, exist_ok=True)
         with open(out_path, "a") as f:
@@ -462,7 +473,8 @@ def profile_kernels(fn, reps: int, out_path, title: str) -> dict:
             f.write("\n")
     top = [(e.key[:60], round(_device_ms(e) / reps, 4)) for e in kern[:8]]
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                busy_share=busy_ms / wall_ms if wall_ms else None, top=top)
+                busy_share=busy_ms / wall_ms if wall_ms else None,
+                kernels_per_call=kernels, top=top)
 
 
 def profile_phase(vert, n, out) -> dict:
@@ -543,7 +555,11 @@ def flash_parity() -> float:
                 cases += [(3, 64, 64, hd, causal, dt),
                           (2, 100, 100, hd, causal, dt),     # ragged
                           (2, 37, 300, hd, causal, dt),      # Sq < Sk
-                          (1, 1, 129, hd, causal, dt)]       # one query
+                          (1, 1, 129, hd, causal, dt),       # one query
+                          # a second query block whose second warpgroup
+                          # holds no row; ragged Sq < Sk over two blocks
+                          (1, 130, 130, hd, causal, dt),
+                          (2, 200, 260, hd, causal, dt)]
     for BH, Sq, Sk, hd, causal, dt in cases:
         q, k, v = rnd(BH, Sq, hd, dt=dt), rnd(BH, Sk, hd, dt=dt), \
             rnd(BH, Sk, hd, dt=dt)
@@ -566,14 +582,18 @@ def flash_parity() -> float:
 
 
 def gmm_case(T: int, d: int, f: int, E: int, live: int, dt, seed: int,
-             one_group: bool = False):
+             one_group=False):
     """Expert-sorted tokens, (E, d, f) weights, and group sizes spread
-    over the first ``live`` experts (the rest empty, as the pad experts)."""
+    over the first ``live`` experts (the rest empty, as the pad experts);
+    ``one_group=True`` puts every row in one group, a list gives the
+    sizes themselves."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(T, d, generator=g, device="cuda").to(dt)
     w = (torch.randn(E, d, f, generator=g, device="cuda") / d ** 0.5).to(dt)
-    if one_group:
+    if isinstance(one_group, list):
+        sizes = torch.tensor(one_group, device="cuda")
+    elif one_group:
         sizes = torch.zeros(E, dtype=torch.int64, device="cuda")
         sizes[min(3, E - 1)] = T
     else:
@@ -598,15 +618,27 @@ def gmm_parity() -> float:
              (5000, 256, 136, 8, 5, bf, False),        # empty groups
              (4096, 128, 64, 6, 6, bf, True),          # one group
              (7, 64, 64, 4, 4, bf, False),             # T < one tile
+             # a group of one row; a group ending mid-tile before a
+             # non-empty one; T below one tile at d 1408; d 1408
+             (300, 256, 384, 4, 4, bf, [1, 150, 0, 149]),
+             (50, 1408, 256, 3, 3, bf, [20, 30, 0]),
+             (1000, 1408, 2048, 8, 8, bf, False),
+             # sizes summing below T (the tail to E - 1) and above it
+             (200, 128, 128, 4, 4, bf, [50, 30, 20, 10]),
+             (200, 128, 128, 4, 4, bf, [150, 100, 80, 40]),
              (300, 64, 128, 4, 4, torch.float32, False),
              (17, 16, 32, 3, 2, torch.float32, False),
              (1000, 128, 64, 16, 8, torch.float32, False),
              (500, 48, 40, 5, 5, torch.float32, True)]
     for i, (T, d, f, E, live, dt, one) in enumerate(cases):
         x, w, sizes = gmm_case(T, d, f, E, live, dt, 100 + i, one)
-        err = max(err, close_in_dtype(
-            grouped_matmul(x, w, sizes), grouped_matmul_ref(x, w, sizes),
-            f"moe_gmm T={T} d={d} f={f} E={E} live={live} {dt}"))
+        want = grouped_matmul_ref(x, w, sizes)
+        what = f"moe_gmm T={T} d={d} f={f} E={E} sizes={one} {dt}"
+        err = max(err, close_in_dtype(grouped_matmul(x, w, sizes), want,
+                                      what))
+        if i == 4:                       # int32 sizes, as well as int64
+            err = max(err, close_in_dtype(
+                grouped_matmul(x, w, sizes.int()), want, what + " int32"))
     return err
 
 
@@ -944,12 +976,13 @@ def grouped_mm_library(x, w, sizes):
     return call, "torch._grouped_mm"
 
 
-def gmm_timing_one(T: int, touched_from_routing: bool, seed: int) -> dict:
+def gmm_timing_one(T: int, d: int, f: int, touched_from_routing: bool,
+                   seed: int) -> dict:
     import torch
     from repro_torch.kernels.moe_gmm import (grouped_matmul,
                                              grouped_matmul_cuda,
-                                             grouped_matmul_ref, tile_map)
-    d, f, E, live = (SERVE_SHAPE[k] for k in ("d", "f", "E", "live"))
+                                             grouped_matmul_ref)
+    E, live = SERVE_SHAPE["E"], SERVE_SHAPE["live"]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
     w = (torch.randn(E, d, f, generator=g, device="cuda") / d ** 0.5) \
@@ -963,24 +996,32 @@ def gmm_timing_one(T: int, touched_from_routing: bool, seed: int) -> dict:
         eid = torch.randint(0, live, (T,), generator=g, device="cuda")
     eid = torch.sort(eid).values
     sizes = torch.bincount(eid, minlength=E)
-    # the kernel alone over its tile map, as the library call gets its
-    # offsets ready-made; the entry point the model calls (tile map on
-    # the card, then the kernel) is timed beside it as wrapper_ms
-    tiles = tile_map(sizes, T)
-    run_k = lambda: grouped_matmul_cuda(x, w, tiles)
+    # the kernel's wrapper alone, and the entry point the model calls
+    # (the same one launch, behind the device dispatch) as wrapper_ms
+    run_k = lambda: grouped_matmul_cuda(x, w, sizes)
     run_w = lambda: grouped_matmul(x, w, sizes)
     run_p = lambda: grouped_matmul_ref(x, w, sizes)
-    err = close_in_dtype(run_k(), run_p(), f"moe_gmm timing inputs T={T}")
+    err = close_in_dtype(run_k(), run_p(),
+                         f"moe_gmm timing inputs T={T} d={d} f={f}")
     lib, lib_name = grouped_mm_library(x, w, sizes)
     ms, plain_ms = time_ms(run_k), time_ms(run_p, reps=5)
     wrapper_ms = time_ms(run_w)
     lib_ms = time_ms(lib) if lib is not None else None
+    # the host's time to enqueue one entry-point call (argument checks,
+    # two tensor maps encoded, the launch), over calls not waited for
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        run_w()
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
     touched = int((sizes > 0).sum())
     flop = 2 * T * d * f
     # tokens read, out written, and the weights of every expert touched
     nbytes = T * d * 2 + T * f * 2 + touched * d * f * 2
     t_op, t_b = flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S
-    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+    return dict(ms=ms, wrapper_ms=wrapper_ms, host_us=host_us,
+                plain_ms=plain_ms,
                 bound_ms=max(t_op, t_b) * 1e3,
                 bound_by="operations" if t_op > t_b else "bytes",
                 library_ms=lib_ms, library=lib_name, max_abs_err=err,
@@ -988,14 +1029,93 @@ def gmm_timing_one(T: int, touched_from_routing: bool, seed: int) -> dict:
                 flop=flop, bytes=nbytes)
 
 
+def tensor_map_encode_us(E: int, d: int, f: int) -> float:
+    """Host µs of one cuTensorMapEncodeTiled call, as the grouped matmul
+    makes for its (E, d, f) weight map on every call (two maps a call)."""
+    import ctypes
+    import torch
+    w = torch.empty((E, d, f), dtype=torch.bfloat16, device="cuda")
+    fn = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    fn.restype = ctypes.c_int
+    buf = ctypes.create_string_buffer(128 + 64)     # the map, 64-B aligned
+    addr = ctypes.addressof(buf) + (-ctypes.addressof(buf)) % 64
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    dims = (u64 * 3)(f, d, E)
+    strides = (u64 * 2)(f * 2, f * d * 2)
+    box, ones = (u32 * 3)(64, 64, 1), (u32 * 3)(1, 1, 1)
+    # bfloat16 = 9, no interleave, 128-byte swizzle = 3, L2 256 B = 3
+    args = (ctypes.c_void_p(addr), 9, 3, ctypes.c_void_p(w.data_ptr()), dims,
+            strides, box, ones, 0, 3, 3, 0)
+    if fn(*args) != 0:
+        raise AssertionError("cuTensorMapEncodeTiled refused the weight map")
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        fn(*args)
+    return (time.perf_counter() - t0) * 1e3
+
+
 def gmm_timing(launches: int) -> dict:
     """moe_gmm at the serving path's shapes: prefill (T = 8 * 2048 * 4
-    routed rows) and decode (T = 8 * 4)."""
-    pre = gmm_timing_one(SERVE_SHAPE["T_pre"], False, 9)
-    dec = gmm_timing_one(SERVE_SHAPE["T_dec"], True, 10)
+    routed rows) as w_gate / w_up (d -> f) and as w_down (f -> d), and
+    decode (T = 8 * 4)."""
+    T_pre, T_dec, d, f = (SERVE_SHAPE[k] for k in ("T_pre", "T_dec", "d",
+                                                  "f"))
+    pre = gmm_timing_one(T_pre, d, f, False, 9)
+    down = gmm_timing_one(T_pre, f, d, False, 12)
+    dec = gmm_timing_one(T_dec, d, f, True, 10)
+    dec["tensor_map_encode_us"] = tensor_map_encode_us(SERVE_SHAPE["E"], d, f)
     return dict(name="moe_gmm", route="cuda", source=GMM_SRC,
                 replaces=GMM_REPLACES, launches=launches, **pre,
-                decode=dec)
+                w_down=down, decode=dec)
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts() -> dict:
+    """Per kernel library, how many HGMMA (wgmma), UTMALDG (TMA load) and
+    HMMA (mma.sync) instructions its SASS holds (cuobjdump)."""
+    import os
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = {}
+    for name in build.KERNELS:
+        sass = subprocess.run([tool, "--dump-sass",
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        out[name] = {op: len(re.findall(rf"\s{op}[.\s]", sass))
+                     for op in SASS_OPS}
+    for name in SERVING_KERNELS:
+        if not (out[name]["HGMMA"] and out[name]["UTMALDG"]):
+            raise AssertionError(f"{name}: no wgmma or TMA load in its SASS "
+                                 f"{out[name]}")
+    return out
+
+
+def ptxas_usage(name: str) -> dict:
+    """Registers and spill bytes of each bf16 kernel in library ``name``,
+    from ptxas's report in its build log."""
+    from repro_torch.kernels import build
+    out, fn = {}, None
+    for ln in build.library_path(name).with_suffix(".log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"([a-z_]+_bf16)(?:ILi(\d+)E)?", m.group(1))
+            fn = f"{k.group(1)}<{k.group(2)}>" if k and k.group(2) else \
+                (k.group(1) if k else None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if fn and m:
+            out.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + \
+                int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn and m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+            fn = None
+    return out
 
 
 def check_launches(path: str, launches: dict, names):
@@ -1025,6 +1145,11 @@ def main(argv=None) -> int:
     log(f"device: {name} | nvidia-smi: {card_line()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"kernel build: {build.build_all():.2f} s")
+    for lib, counts in sass_counts().items():
+        log(f"sass {lib}: " + " ".join(f"{k} {v}" for k, v in
+                                       counts.items()))
+    for lib in SERVING_KERNELS:
+        log(f"ptxas {lib}: {json.dumps(ptxas_usage(lib))}")
 
     # 2. kernel parity on the card
     t = time.perf_counter()

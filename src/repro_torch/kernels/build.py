@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/repro_torch_kernels/`` at the root of the checkout. The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. ``build_all`` starts one
-``nvcc`` per missing library, all together, and waits for them.
+file name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. ``build_all`` starts one
+``nvcc`` per missing library, all together, and waits for them; each
+build's log (with ptxas's registers and spills a kernel) is kept beside
+its library as ``<library>.log``.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port, and a machine without ``nvcc`` never reaches this code.
@@ -25,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 KERNELS = ("segment_combine", "csr_spmv", "flash_attention", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
 
@@ -42,9 +45,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=KERNELS) -> float:
@@ -69,6 +74,7 @@ def build_all(names=KERNELS) -> float:
         if p.returncode != 0:
             errors.append(f"{name}: nvcc exited {p.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)        # atomic: a reader never sees half a file
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))

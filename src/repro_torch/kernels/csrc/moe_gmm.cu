@@ -3,55 +3,127 @@
 //
 // Replaces: src/repro/kernels/moe_gmm/moe_gmm.py, grouped_matmul_pallas
 // (body _kernel), with the group padding of moe_gmm/ops.py:_group_pad
-// and its gather back folded into the tile map.
+// and its gather back folded into an in-kernel tile schedule.
 //   out[t] = tokens[t] @ w[expert_of(t)]   (float32 accumulate, out in
 //   the tokens' type), tokens sorted by expert.
 //
-// What bounds it: operations at prefill (T = 65,536 routed rows, d =
-// 2048, f = 1408: 2 T d f ~ 3.78e11 FLOP against ~0.9 GB of tokens,
-// out and weights), bytes at decode (T = 32 rows: the weights of the
-// experts they touch, 5.8 MB each in bf16, dominate).
+// What bounds it on an H100: operations at prefill (T = 65,536 routed
+// rows, d 2048 -> f 1408 and back: 2 T d f = 3.78e11 FLOP, 0.38 ms at
+// 989 TFLOP/s, against ~0.9 GB of tokens, out and weights); bytes at
+// decode (T = 32 rows: the weights of the ~29 experts they touch, 5.8 MB
+// each in bf16, 0.05 ms at 3.35 TB/s).
 //
 // Design. The TPU kernel needed every token tile to belong to one expert,
-// so ops.py scattered the tokens into a padded copy, one BM-aligned slab
-// per expert, and gathered the result back. Here a block reads its own
-// tile's entry of a tile map (expert, first row, row count), built on the
-// card by kernels/moe_gmm/ops.py, and reads and writes the unpadded
-// sorted rows directly: no padded copy, no gather back. The map has a
-// static length (ceil(T / BM) + E, the most tiles the groups can need);
-// entries past the last tile have a row count of 0 and return at once,
-// as do experts without tokens (the pad experts are never routed). A
-// block computes a BM x BN tile of out, looping over d in BK steps.
-// - bfloat16: 4 warps in 2 x 2, each 32 x 64, mma.sync m16n8k16 (bf16
-//   in, float32 accumulate). The token tile is staged row-major and the
-//   weight tile transposed (n-major) in shared memory, rows padded so
-//   the fragment loads do not conflict on banks. Needs d and f to be
-//   multiples of 8 (16-byte rows).
+// so its wrapper scattered the tokens into a padded copy, one BM-aligned
+// slab per expert, and gathered the result back. Here the kernel takes
+// the (E,) group sizes itself: one warp of each block turns them into row
+// ranges and tile counts in shared memory (the assignment of
+// kernels/moe_gmm/ops.py:tile_map: rows past sum(sizes) go to expert
+// E - 1, sizes past T are cut, empty experts get no tile), and the block
+// reads and writes the unpadded sorted rows directly. A launch is this
+// one kernel and no other op.
+// - bfloat16: a persistent, warp-specialised GEMM. One block per SM walks
+//   the flat list of work tiles (expert, 128-row tile, BN-column tile)
+//   with a stride of the grid. A producer warp issues TMA loads into a
+//   ring of stages (192 KB in all), each guarded by a full and an empty
+//   mbarrier: the token tile (128 rows x 64 of d) from a 2-D map over the
+//   sorted tokens, at any row (a tile that runs into the next expert's
+//   rows loads them harmlessly; rows past T read as zeros), and the
+//   weight tile (64 of d x BN) from a 3-D map over w (E, d, f), read
+//   MN-major by the wgmma descriptor, so nothing is transposed by hand.
+//   Two consumer warpgroups each run wgmma m64nBNk16 on 64 rows of the
+//   tile, keeping one k-step in flight, and release a stage as soon as
+//   the wgmma that read it is done. Both always multiply, even rows past
+//   the tile's count: a branch on the count makes the compiler serialise
+//   every wgmma. The epilogue casts to bf16 and stores row by row, masked
+//   to the tile's row count and to f: a TMA store of the whole box would
+//   overwrite the next expert's rows. The producer runs ahead into the
+//   next tile while the consumers store. BN is 256 where it divides f
+//   (w_down, f 2048) and 128 otherwise (f 1408 = 11 x 128); measured on
+//   the card, BN 64 was slower at every shape, decode included. Needs d
+//   and f multiples of 8 (16-byte rows for TMA).
 // - float32: a plain 64 x 64 FMA tile, 4 x 4 outputs a thread, for the
-//   reduced models and the tests' float32 shapes.
-// No software pipelining yet; cp.async / TMA and wgmma are later work.
+//   reduced models and the tests' float32 shapes; one block per (row
+//   tile, column tile), over the same in-kernel schedule.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 128;
+constexpr int MAX_E = 256;   // groups the schedule holds
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Group e's rows are [start[e], start[e] + size[e]) of the sorted tokens;
+// tile_end[e] counts the bm-row tiles of groups 0 .. e.
+struct Groups {
+  int start[MAX_E];
+  int size[MAX_E];
+  int tile_end[MAX_E];
+};
+
+// One warp: an inclusive scan of the sizes over chunks of 32 groups.
+__device__ void schedule_groups(Groups& g, const void* sizes, int sizes64,
+                                int E, int T, int bm) {
+  const int lane = threadIdx.x & 31;
+  long long row_carry = 0;
+  int tile_carry = 0;
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    long long x = 0;
+    if (e < E)
+      x = sizes64 ? static_cast<const long long*>(sizes)[e]
+                  : static_cast<const int*>(sizes)[e];
+    long long incl = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    incl += row_carry;
+    const int start = (int)min(incl - x, (long long)T);
+    const int end = e == E - 1 ? T : (int)min(incl, (long long)T);
+    const int size = e < E ? end - start : 0;
+    int tiles = (size + bm - 1) / bm;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, tiles, o);
+      if (lane >= o) tiles += y;
+    }
+    tiles += tile_carry;
+    if (e < E) {
+      g.start[e] = start;
+      g.size[e] = size;
+      g.tile_end[e] = tiles;
+    }
+    row_carry = __shfl_sync(0xffffffffu, incl, 31);
+    tile_carry = __shfl_sync(0xffffffffu, tiles, 31);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+struct Tile {
+  int e, r0, rows, n0;
+};
+
+// Work tile w: row tile w / n_col (of expert e, the first whose tile_end
+// exceeds it), column tile w % n_col.
+__device__ __forceinline__ Tile work_tile(const Groups& g, int E, int n_col,
+                                          int bm, int bn, int w) {
+  const int rt = w / n_col;
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (g.tile_end[mid] > rt) hi = mid;
+    else lo = mid + 1;
+  }
+  const int j = rt - (g.tile_end[lo] - (g.size[lo] + bm - 1) / bm);
+  Tile t;
+  t.e = lo;
+  t.r0 = g.start[lo] + j * bm;
+  t.rows = min(bm, g.size[lo] - j * bm);
+  t.n0 = (w - rt * n_col) * bn;
+  return t;
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -59,89 +131,169 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
 }
 
-__global__ void __launch_bounds__(THREADS)
-gmm_bf16(const __nv_bfloat16* __restrict__ tokens,
-         const __nv_bfloat16* __restrict__ w, const int* __restrict__ tiles,
-         int d, int f, __nv_bfloat16* __restrict__ out) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM][BK + 8];
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN][BK + 8];
-  const int e = tiles[3 * blockIdx.x], r0 = tiles[3 * blockIdx.x + 1];
-  const int rows = tiles[3 * blockIdx.x + 2];
-  if (rows <= 0) return;
-  const int n0 = blockIdx.y * BN;
-  const __nv_bfloat16* W = w + (long long)e * d * f;
-  const __nv_bfloat16* X = tokens + (long long)r0 * d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+// ------------------------------------------------------------ bfloat16
 
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    // token tile: BM rows x BK, 16-byte chunks; rows past the tile's
-    // count and columns past d load as zeros
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && k0 + kc < d)
-        x = *reinterpret_cast<const uint4*>(X + (long long)r * d + k0 + kc);
-      *reinterpret_cast<uint4*>(&As[r][kc]) = x;
+constexpr int BM = 128;       // rows a tile: two consumer warpgroups of 64
+constexpr int BK = 64;        // d a stage: 64 bf16 = the 128-byte swizzle
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * (1 + CONSUMERS);
+constexpr int A_BYTES = BM * BK * 2;            // token tile, 16 KB
+constexpr int PANEL_BYTES = BK * 64 * 2;        // BK rows of 64 columns
+constexpr int RING_BYTES = 192 * 1024;          // the stages together
+
+// BN columns a tile, BN / 64 panels of w a stage
+template <int BN>
+struct Ring {
+  static constexpr int STAGE_BYTES = A_BYTES + (BN / 64) * PANEL_BYTES;
+  static constexpr int STAGES = RING_BYTES / STAGE_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_bf16(const __grid_constant__ CUtensorMap tm_x,
+         const __grid_constant__ CUtensorMap tm_w,
+         const void* __restrict__ sizes, int sizes64, int E, int T, int d,
+         int f, __nv_bfloat16* __restrict__ out) {
+  using namespace hopper;
+  constexpr int STAGES = Ring<BN>::STAGES, STAGE_BYTES = Ring<BN>::STAGE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ Groups g;
+  uint8_t* smem = align_1024(smem_raw);
+  if (threadIdx.x < 32) {
+    schedule_groups(g, sizes, sizes64, E, T, BM);
+  } else if (threadIdx.x == 32) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    // weight tile: BK rows of w[e] x BN, stored transposed Bs[n][k];
-    // the k index runs fastest over a warp so the 2-byte stores spread
-    for (int c = tid; c < BK * BN / 8; c += THREADS) {
-      const int kr = c % BK, nc = (c / BK) * 8;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + kr < d && n0 + nc < f)
-        x = *reinterpret_cast<const uint4*>(W + (long long)(k0 + kr) * f +
-                                            n0 + nc);
-      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Bs[nc + i][kr] = v[i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const __nv_bfloat16* p = &As[wm + i * 16 + g][kk + 2 * t];
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * (BK + 8));
-        a[i][2] = ld32(p + 8);
-        a[i][3] = ld32(p + 8 * (BK + 8) + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* p = &Bs[wn + j * 8 + g][kk + 2 * t];
-        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-        mma_bf16(acc[0][j], a[0], b0, b1);
-        mma_bf16(acc[1][j], a[1], b0, b1);
-      }
-    }
-    __syncthreads();
+    mbar_init_fence();
   }
-  // f is a multiple of 8, so a column pair (2t, 2t+1) is in or out whole
+  __syncthreads();
+  const int n_col = (f + BN - 1) / BN;
+  const int n_work = g.tile_end[E - 1] * n_col;
+  const int nk = (d + BK - 1) / BK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      tma_prefetch_map(&tm_x);
+      tma_prefetch_map(&tm_w);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Tile t = work_tile(g, E, n_col, BM, BN, w);
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* a = smem + stage * STAGE_BYTES;
+          mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load_2d(a, &tm_x, &full[stage], kb * BK, t.r0);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int ra = wm + i * 16 + g, rb = ra + 8;
+          for (int p = 0; p < BN / 64; ++p)
+            tma_load_3d(a + A_BYTES + p * PANEL_BYTES, &tm_w, &full[stage],
+                        t.n0 + 64 * p, kb * BK, t.e);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: rows 64 c .. 64 c + 63 of every tile. Both always
+    // run the wgmma, even on rows past the tile's count: a branch on the
+    // count would make the compiler serialise every wgmma.
+    setmaxnreg_inc<232>();
+    const int c = wg - 1, warp = tid / 32, lane = tid % 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BN / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
-      if (col >= f) continue;
-      if (ra < rows)
-        *reinterpret_cast<uint32_t*>(out + (long long)(r0 + ra) * f + col) =
-            pack(acc[i][j][0], acc[i][j][1]);
-      if (rb < rows)
-        *reinterpret_cast<uint32_t*>(out + (long long)(r0 + rb) * f + col) =
-            pack(acc[i][j][2], acc[i][j][3]);
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const Tile t = work_tile(g, E, n_col, BM, BN, w);
+      int prev = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_u32(smem + stage * STAGE_BYTES) + c * 64 * 128;
+        const uint32_t b = smem_u32(smem + stage * STAGE_BYTES + A_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < BK / 16; ++s)
+          Wgmma<BN>::template ss<1>(
+              acc, desc_k_major<128>(a + 32 * s),
+              desc_mn_major<128>(b + 16 * 128 * s, PANEL_BYTES),
+              (kb | s) != 0);
+        wgmma_commit();
+        wgmma_wait<1>();       // the k-step before this one is done
+        if (kb > 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&empty[prev]);
+      // f is a multiple of 8, so a column pair (2i, 2i + 1) is in or out
+      const int r = 64 * c + 16 * warp + lane / 4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = t.n0 + 8 * j + 2 * (lane % 4);
+        if (col >= f) continue;
+        if (r < t.rows)
+          *reinterpret_cast<uint32_t*>(
+              out + (long long)(t.r0 + r) * f + col) =
+              pack(acc[4 * j], acc[4 * j + 1]);
+        if (r + 8 < t.rows)
+          *reinterpret_cast<uint32_t*>(
+              out + (long long)(t.r0 + r + 8) * f + col) =
+              pack(acc[4 * j + 2], acc[4 * j + 3]);
+      }
     }
   }
 }
+
+template <int BN>
+int launch_bf16(const void* tokens, const void* w, const void* sizes,
+                int sizes64, int E, int T, int d, int f, void* out,
+                cudaStream_t s) {
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)d, (cuuint64_t)T};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t x_box[2] = {BK, BM};
+  int rc = hopper::encode_bf16_map(&tm_x, tokens, 2, x_dims, x_strides,
+                                   x_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)f, (cuuint64_t)d, (cuuint64_t)E};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)f * 2, (cuuint64_t)f * d * 2};
+  const cuuint32_t w_box[3] = {64, BK, 1};
+  rc = hopper::encode_bf16_map(&tm_w, w, 3, w_dims, w_strides, w_box,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gmm_bf16<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Ring<BN>::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  static const int sms = hopper::sm_count();
+  const long long n_col = (f + BN - 1) / BN;
+  const long long most = ((T + BM - 1) / BM + E) * n_col;  // work tiles
+  const int grid = (int)(most < sms ? most : sms);
+  gmm_bf16<BN><<<grid, THREADS, Ring<BN>::SMEM_BYTES, s>>>(
+      tm_x, tm_w, sizes, sizes64, E, T, d, f,
+      static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ float32
 
 constexpr int FB = 64;       // float32 tile: FB x FB outputs
 constexpr int FBK = 16;
@@ -149,16 +301,19 @@ constexpr int FTHREADS = 256;  // 16 x 16, 4 x 4 outputs each
 
 __global__ void __launch_bounds__(FTHREADS)
 gmm_f32(const float* __restrict__ tokens, const float* __restrict__ w,
-        const int* __restrict__ tiles, int d, int f,
-        float* __restrict__ out) {
+        const void* __restrict__ sizes, int sizes64, int E, int T, int d,
+        int f, float* __restrict__ out) {
+  __shared__ Groups g;
   __shared__ float As[FBK][FB + 1];
   __shared__ float Bs[FBK][FB];
-  const int e = tiles[3 * blockIdx.x], r0 = tiles[3 * blockIdx.x + 1];
-  const int rows = tiles[3 * blockIdx.x + 2];
-  if (rows <= 0) return;
-  const int n0 = blockIdx.y * FB;
-  const float* W = w + (long long)e * d * f;
-  const float* X = tokens + (long long)r0 * d;
+  if (threadIdx.x < 32) schedule_groups(g, sizes, sizes64, E, T, FB);
+  __syncthreads();
+  if ((int)blockIdx.x >= g.tile_end[E - 1]) return;
+  const Tile t = work_tile(g, E, gridDim.y, FB, FB,
+                           blockIdx.x * gridDim.y + blockIdx.y);
+  const int rows = t.rows, n0 = t.n0;
+  const float* W = w + (long long)t.e * d * f;
+  const float* X = tokens + (long long)t.r0 * d;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < d; k0 += FBK) {
@@ -193,7 +348,7 @@ gmm_f32(const float* __restrict__ tokens, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx + 16 * j;
-      if (col < f) out[(long long)(r0 + r) * f + col] = acc[i][j];
+      if (col < f) out[(long long)(t.r0 + r) * f + col] = acc[i][j];
     }
   }
 }
@@ -201,28 +356,32 @@ gmm_f32(const float* __restrict__ tokens, const float* __restrict__ w,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. tokens: (T, d), w: (E, d, f), out: (T,
-// f), all contiguous; tiles: (n_tiles, 3) int32 rows of (expert, first
-// row, row count), row count <= 64. bf16 needs d % 8 == 0 and f % 8 == 0.
+// f), all contiguous, sorted by expert; sizes: (E,) group sizes, int64 if
+// sizes64 else int32, on the card. E <= 256. bf16 needs d % 8 == 0, f % 8
+// == 0 and 16-byte aligned tokens and w. Returns a cudaError_t, or
+// hopper::TMAP_ERROR + a CUresult when a tensor map is refused.
 extern "C" int grouped_matmul_launch(int dtype, const void* tokens,
-                                     const void* w, const void* tiles,
-                                     long long n_tiles, int d, int f,
-                                     void* out, void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (d <= 0 || f <= 0 || n_tiles > 0x7fffffffLL)
+                                     const void* w, const void* sizes,
+                                     int sizes64, int E, long long T, int d,
+                                     int f, void* out, void* stream) {
+  if (T <= 0) return 0;
+  if (d <= 0 || f <= 0 || E <= 0 || E > MAX_E || T > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (d % 8 != 0 || f % 8 != 0 || (f + BN - 1) / BN > 65535)
-      return (int)cudaErrorInvalidValue;
-    gmm_bf16<<<dim3((unsigned)n_tiles, (f + BN - 1) / BN), THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(tokens),
-        static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(tiles),
-        d, f, static_cast<__nv_bfloat16*>(out));
+    if (d % 8 != 0 || f % 8 != 0) return (int)cudaErrorInvalidValue;
+    return f % 256 == 0
+               ? launch_bf16<256>(tokens, w, sizes, sizes64, E, (int)T, d, f,
+                                  out, s)
+               : launch_bf16<128>(tokens, w, sizes, sizes64, E, (int)T, d, f,
+                                  out, s);
   } else if (dtype == 0) {
-    if ((f + FB - 1) / FB > 65535) return (int)cudaErrorInvalidValue;
-    gmm_f32<<<dim3((unsigned)n_tiles, (f + FB - 1) / FB), FTHREADS, 0, s>>>(
+    const long long rows = (T + FB - 1) / FB + E;
+    if ((f + FB - 1) / FB > 65535 || rows > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    gmm_f32<<<dim3((unsigned)rows, (f + FB - 1) / FB), FTHREADS, 0, s>>>(
         static_cast<const float*>(tokens), static_cast<const float*>(w),
-        static_cast<const int*>(tiles), d, f, static_cast<float*>(out));
+        sizes, sizes64, E, (int)T, d, f, static_cast<float*>(out));
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 from repro_torch.kernels.flash_attention.flash_attention import (
-    counter, flash_attention, flash_attention_cuda)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+    BLOCK_K, BLOCK_Q, counter, flash_attention, flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_tiled)
 
-__all__ = ["attention_ref", "counter", "flash_attention",
-           "flash_attention_cuda"]
+__all__ = ["BLOCK_K", "BLOCK_Q", "attention_ref", "attention_tiled",
+           "counter", "flash_attention", "flash_attention_cuda"]

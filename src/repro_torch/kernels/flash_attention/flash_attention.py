@@ -1,13 +1,14 @@
 """The flash-attention forward behind one wrapper.
 
 On CUDA tensors ``flash_attention`` launches the hand-written Hopper
-kernel (``kernels/csrc/flash_attention.cu``; tensor cores for bfloat16,
-a plain FMA kernel for float32); on CPU tensors it runs the plain masked
-softmax (``ref.attention_ref``). Same semantics as the JAX package's
-``flash_attention_pallas``: scale hd**-0.5 after QK, the finite -1e30
-mask, queries at the last Sq key positions, the denominator floored at
-1e-30, float32 inside, the output in q's dtype. ``counter.launches``
-counts kernel launches.
+kernel (``kernels/csrc/flash_attention.cu``; TMA loads and wgmma for
+bfloat16, a plain FMA kernel for float32); on CPU tensors it runs the
+plain masked softmax (``ref.attention_ref``); ``ref.attention_tiled``
+replays the bfloat16 kernel's tile-level numerics. Same semantics as the
+JAX package's ``flash_attention_pallas``: scale hd**-0.5 after QK, the
+finite -1e30 mask, queries at the last Sq key positions, the denominator
+floored at 1e-30, float32 inside, the output in q's dtype.
+``counter.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
+BLOCK_Q, BLOCK_K = 128, 64     # the bfloat16 kernel's query and key tiles
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = build.LaunchCounter()
@@ -35,12 +37,21 @@ def _need(cond: bool, what: str):
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     """x itself if the kernel can read it through its strides (hd
-    contiguous; for bf16 16-byte aligned rows), else a contiguous copy."""
+    contiguous; for bf16, TMA's 16-byte aligned base and strides), else a
+    contiguous copy."""
     ok = x.stride(-1) == 1
     if x.dtype == torch.bfloat16:
         ok = ok and x.data_ptr() % 16 == 0 and all(
-            s % 8 == 0 for s in x.stride()[:-1])
+            s % 8 == 0 and s > 0 for s, n in zip(x.stride()[:-1], x.shape)
+            if n > 1)
     return x if ok else x.contiguous()
+
+
+def _strides(x: torch.Tensor):
+    """(batch, seq, head) strides; a dimension of size 1 is only ever read
+    at 0, so its stride is any valid one (torch may report 1 for it)."""
+    return [s if n > 1 else x.numel() for s, n in zip(x.stride()[:3],
+                                                      x.shape)]
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,7 +77,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = _kernel_layout(q), _kernel_layout(k), _kernel_layout(v)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
+        *(s for t in (q, k, v, o) for s in _strides(t)))
     fn = build.function("flash_attention", "flash_attention_launch",
                         _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,41 +1,48 @@
-"""Grouped matmul over expert-sorted tokens: the tile map, and the entry
-point the MoE layer calls.
+"""Grouped matmul over expert-sorted tokens: the entry point the MoE
+layer calls, and the torch replay of the kernel's tile schedule.
 
 The JAX wrapper (``_group_pad``) scatters the sorted tokens into a
-padded copy with one TILE_M-aligned slab per expert, so each tile of the
+padded copy with one block_m-aligned slab per expert, so each tile of the
 TPU kernel belongs to one expert, and gathers the result back by
-``pos``. ``tile_map`` computes the same tile -> expert assignment
-(``searchsorted`` over the cumulative tile counts, clipped to E - 1, a
-static bound of ceil(T / TILE_M) + E tiles) but names each tile's first
-row and row count in the UNPADDED sorted rows, so the kernel needs no
-padded copy and no gather back. Tile i of the map is the i-th tile of
-``_group_pad``'s layout that holds a row.
+``pos``. The CUDA kernel computes the same tile -> expert assignment
+from the group sizes inside each block, but names each tile's first row
+and row count in the UNPADDED sorted rows, so it needs no padded copy and
+no gather back. ``tile_map`` replays that assignment (``searchsorted``
+over the cumulative tile counts, clipped to E - 1, a static bound of
+ceil(T / block_m) + E tiles): tile i of the map is the i-th tile of
+``_group_pad``'s layout that holds a row. ``work_tiles`` replays the
+bfloat16 kernel's flat work list over (row tile, column tile), which its
+persistent blocks walk with a stride of the grid.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_gmm.moe_gmm import TILE_M, grouped_matmul_cuda
+from repro_torch.kernels.moe_gmm.moe_gmm import (TILE_M, grouped_matmul_cuda,
+                                                 tile_n)
 from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+
+
+def _groups(group_sizes: torch.Tensor, T: int, block_m: int):
+    """(starts, sizes, tiles a group) after the reference's cuts: rows
+    past sum(group_sizes) belong to expert E - 1, sizes past T are cut."""
+    ends = torch.cumsum(group_sizes.long(), 0).clamp(max=T)
+    ends[-1] = T
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    sizes = ends - starts
+    return starts, sizes, (sizes + block_m - 1) // block_m
 
 
 def tile_map(group_sizes: torch.Tensor, T: int,
              block_m: int = TILE_M) -> torch.Tensor:
     """group_sizes: (E,) -> (ceil(T / block_m) + E, 3) int32 rows of
     (expert, first row, row count); unused entries have a count of 0.
-    Rows past sum(group_sizes) belong to expert E - 1 and sizes past T
-    are cut, as the reference's clipped searchsorted assigns them. Runs
-    on the sizes' device, with no host sync."""
+    Runs on the sizes' device, with no host sync."""
     E = group_sizes.shape[0]
-    dev = group_sizes.device
-    ends = torch.cumsum(group_sizes.long(), 0).clamp(max=T)
-    ends[-1] = T
-    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
-    sizes = ends - starts
-    n_tiles = (sizes + block_m - 1) // block_m
+    starts, sizes, n_tiles = _groups(group_sizes, T, block_m)
     tile_end = torch.cumsum(n_tiles, 0)
     bound = -(-T // block_m) + E
-    i = torch.arange(bound, device=dev)
+    i = torch.arange(bound, device=group_sizes.device)
     eid = torch.searchsorted(tile_end, i, right=True).clamp(max=E - 1)
     j = i - (tile_end[eid] - n_tiles[eid])          # tile within its group
     rows = (sizes[eid] - j * block_m).clamp(0, block_m)
@@ -43,15 +50,37 @@ def tile_map(group_sizes: torch.Tensor, T: int,
                        dim=1).to(torch.int32)
 
 
+def work_tiles(group_sizes: torch.Tensor, T: int, f: int,
+               block_m: int = TILE_M, block_n: int = 0) -> torch.Tensor:
+    """The kernel's work list, by its own arithmetic: work tile w is row
+    tile w // n_col (the expert whose cumulative tile count first exceeds
+    it) and column tile w % n_col, n_col = ceil(f / block_n), block_n 0
+    meaning the bfloat16 kernel's ``tile_n(f)``. -> (n_work, 4) int32 rows
+    of (expert, first row, row count, first column). Block b of a grid of
+    G takes tiles b, b + G, b + 2G, ..."""
+    block_n = block_n or tile_n(f)
+    starts, sizes, n_tiles = _groups(group_sizes, T, block_m)
+    tile_end = torch.cumsum(n_tiles, 0)
+    n_col = -(-f // block_n)
+    w = torch.arange(int(tile_end[-1]) * n_col, device=group_sizes.device)
+    rt = w // n_col
+    e = torch.searchsorted(tile_end, rt, right=True)
+    j = rt - (tile_end[e] - n_tiles[e])
+    rows = torch.minimum(sizes[e] - j * block_m,
+                         torch.full_like(j, block_m))
+    return torch.stack([e, starts[e] + j * block_m, rows,
+                        (w - rt * n_col) * block_n], dim=1).to(torch.int32)
+
+
 def grouped_matmul(tokens: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """tokens: (T, d) expert-sorted; w: (E, d, f); group_sizes: (E,).
     -> (T, f), out[t] = tokens[t] @ w[expert_of(t)]. The kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (one launch), the plain version on CPU tensors."""
     dev = tokens.device
     if dev.type == "cpu":
         return grouped_matmul_ref(tokens, w, group_sizes)
     if dev.type != "cuda":
         raise ValueError(f"grouped_matmul: no kernel for device {dev}")
-    tiles = tile_map(group_sizes, tokens.shape[0])
-    return grouped_matmul_cuda(tokens.contiguous(), w.contiguous(), tiles)
+    return grouped_matmul_cuda(tokens.contiguous(), w.contiguous(),
+                               group_sizes.contiguous())

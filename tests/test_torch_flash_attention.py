@@ -110,3 +110,34 @@ def test_wrapper_raises_off_cpu_and_cuda():
         flash_attention(x, x, x)
     with pytest.raises(ValueError, match="no kernel"):
         t_ops.flash_attention(x[:, :, None], x[:, :, None], x[:, :, None])
+
+
+# (B, Sq, Sk, hd, causal): a full block, ragged lengths, Sq < Sk, a
+# non-causal block past one tile, one query
+TILED = [(2, 128, 128, 64, True), (1, 200, 200, 128, True),
+         (2, 37, 300, 32, True), (1, 130, 130, 64, False),
+         (1, 1, 129, 128, True)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,hd,causal", TILED)
+def test_kernel_tile_replay_matches_oracle(B, Sq, Sk, hd, causal):
+    """The bfloat16 kernel's numerics replayed tile by tile in torch
+    (BLOCK_Q / BLOCK_K as built, base-2 online softmax, p split hi + lo)
+    against the JAX oracle on the same bf16-valued inputs, in float32.
+    The split carries p to ~2**-17 of itself, so outputs (weighted means
+    of |v| <~ 4) move by <~ 4 * 2**-17 = 3e-5: atol 5e-5. Rounding p to
+    bf16 alone (no lo) misses that bound, which the test also checks."""
+    from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q,
+                                                     attention_tiled)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs([(B, Sq, hd), (B, Sk, hd), (B, Sk, hd)],
+                                seed=Sq * 7 + Sk))
+    got = attention_tiled(q, k, v, causal=causal, block_q=BLOCK_Q,
+                          block_k=BLOCK_K)
+    want = j_ref(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                 causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+    if Sk > 1 and Sq > 1:
+        hi_only = attention_tiled(q, k, v, causal=causal, block_q=BLOCK_Q,
+                                  block_k=BLOCK_K, split_p=False)
+        assert np.abs(hi_only.numpy() - np.asarray(want)).max() > 5e-5

@@ -15,7 +15,7 @@ import torch
 from repro.kernels.moe_gmm import ops as j_ops
 from repro.kernels.moe_gmm.ref import grouped_matmul_ref as j_ref
 from repro_torch.kernels.moe_gmm import (grouped_matmul, grouped_matmul_ref,
-                                         tile_map)
+                                         tile_map, tile_n, work_tiles)
 
 # tests/test_kernels.py::test_moe_gmm's shapes, an expert with no tokens,
 # T smaller than one tile, and every token in one expert
@@ -98,6 +98,49 @@ def test_sizes_off_the_row_count_clip_as_the_oracle(total):
     for e, r0, n in tiles[tiles[:, 2] > 0]:
         covered[r0:r0 + n] += 1
     assert (covered == 1).all()
+
+
+def _walk_covers_once(sizes, T, f, block_m, block_n):
+    """The kernel's work list, walked by persistent grids of several
+    sizes (block b takes tiles b, b + G, ...): every (tile of tile_map,
+    column tile) once, and so every (row, column tile) once."""
+    s = torch.from_numpy(sizes)
+    tiles = tile_map(s, T, block_m=block_m).numpy()
+    used = tiles[tiles[:, 2] > 0]
+    work = work_tiles(s, T, f, block_m, block_n).numpy()
+    block_n = block_n or tile_n(f)
+    n_col = -(-f // block_n)
+    want = sorted((int(e), int(r0), int(n), c * block_n)
+                  for e, r0, n in used for c in range(n_col))
+    for grid in (1, 3, 7, 132):
+        walked = [tuple(int(x) for x in work[i])
+                  for b in range(grid) for i in range(b, len(work), grid)]
+        assert sorted(walked) == want
+        cover = np.zeros((T, n_col), int)
+        for e, r0, n, c0 in walked:
+            cover[r0:r0 + n, c0 // block_n] += 1
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("block_m,block_n", [(128, 128), (128, 256),
+                                             (64, 64)])
+@pytest.mark.parametrize("kind,T,d,f,E,bm", CASES)
+def test_persistent_walk_covers_every_tile_once(kind, T, d, f, E, bm,
+                                                block_m, block_n):
+    sizes, _, _ = _case(kind, T, d, f, E, seed=T + E)
+    _walk_covers_once(sizes, T, f, block_m, block_n)
+
+
+@pytest.mark.parametrize("total", [37, 90, 300])
+def test_persistent_walk_with_sizes_off_the_row_count(total):
+    """Sizes summing below T (the tail goes to expert E - 1) or above it
+    (trailing groups cut), with ragged column tiles."""
+    T, f, E = 200, 200, 5
+    rng = np.random.default_rng(total)
+    sizes = rng.multinomial(total, np.ones(E) / E).astype(np.int64)
+    _walk_covers_once(sizes, T, f, 128, 0)     # the kernel's own width
+    _walk_covers_once(sizes, T, f, 128, 256)
+    _walk_covers_once(sizes, T, f, 64, 64)
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
