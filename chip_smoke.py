@@ -11,9 +11,15 @@ and never prints its last line):
    counts of HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in its
    SASS; the two serving kernels must show HGMMA and UTMALDG.
 2. kernel parity: each CUDA kernel against its plain torch version on the
-   same CUDA tensors. The fold (sum/min/max, D = 1 and 2, ragged tiles,
-   all-invalid streams, NaN/+-inf payloads, int32-max keys, the main
-   path's shapes) must match bit for bit, the gather exactly. Flash
+   same CUDA tensors. The fold (sum/min/max, D = 1 to 4, ragged tiles,
+   all-invalid streams, NaN/+-inf payloads, int32-max keys; the
+   look-back's shapes: a segment over 66 tiles, segments of exactly 512
+   rows, M = k * 512 +- 1, a key over 300,000 rows; batched (4, M) calls
+   whose partitions differ in kind) must match segment_combine_blocked
+   bit for bit, one partition at a time. The gather (V = 1, 2, 3 and 5,
+   E not a multiple of 4, sorted and shuffled sources, with and without
+   edge weights, pointers off the 16-byte grid) must match
+   edge_gather_ref exactly. Flash
    attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
    bf16, causal) and small cases (f32 and bf16, causal or not, hd 32/64/
    128, ragged S, Sq < Sk, a query block whose second warpgroup holds no
@@ -37,9 +43,13 @@ and never prints its last line):
    rtol 1e-5.
 5. graph kernels' timings at the graph path's shapes: kernel, plain and
    library-call ms (CUDA events, median of 20 after warm-up) beside the
-   bound ms.
-6. profile: device time by kernel (torch.profiler) for the fold's three
-   launches and for one PageRank and one SSSP superstep, with the device
+   bound ms. The fold over all four partitions' (4, Ep) streams in one
+   call, bit-equal to the plain fold and to itself over 20 repeats, with
+   scatter_reduce over partition-offset keys as the yardstick; the
+   gather over the flattened edge stream in the engine's order and
+   shuffled (seeded).
+6. profile: device time by kernel (torch.profiler) for the fold's one
+   launch and for one PageRank and one SSSP superstep, with the device
    busy share of the wall time; ``--profile-out PATH`` also writes the
    full profiler tables to PATH.
 7. reduced qwen2-moe (float32, sort dispatch), the same weights served on
@@ -128,13 +138,15 @@ def card_line() -> str:
 
 # ------------------------------------------------------------- comparisons
 
-def nan_matched_equal(a, b) -> bool:
-    """Equal values, NaN where the other has NaN (torch.equal otherwise)."""
+def same_bits(a, b) -> bool:
+    """float32 tensors equal bit for bit (so -0.0 != +0.0), NaN where
+    the other has NaN (torch picks a NaN's payload by code path)."""
     import torch
     na, nb = torch.isnan(a), torch.isnan(b)
     if not torch.equal(na, nb):
         return False
-    return torch.equal(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+    bits = lambda x, n: torch.where(n, 0, x.view(torch.int32))
+    return torch.equal(bits(a, na), bits(b, nb))
 
 
 def max_abs_err(a, b) -> float:
@@ -210,22 +222,77 @@ def fold_case(rng, M: int, D: int, kind: str, device):
     return t(keys.astype(np.int32)), t(pay), t(valid)
 
 
-def check_fold(keys, pay, valid, op):
-    from repro_torch.kernels.segment_combine import (segment_combine,
-                                                     segment_combine_blocked)
-    M = pay.shape[0]
+def fold_runs(rng, lens, D: int, kind: str, device):
+    """A stream of runs of equal keys with the given lengths (keys 1, 4,
+    7, ...), a few invalid rows at the tail (all of them for
+    kind="all_invalid"), and NaN/+-inf payloads for kind="nonfinite"."""
+    import torch
+    M = int(sum(lens))
+    keys = np.repeat(np.arange(len(lens)) * 3 + 1, lens).astype(np.int32)
+    n_valid = 0 if kind == "all_invalid" else M - int(rng.integers(0, 40))
+    keys[n_valid:] = 2 ** 31 - 1
+    pay = rng.normal(size=(M, D)).astype(np.float32)
+    if kind == "nonfinite":
+        pick = rng.random((M, D))
+        pay[pick < 0.01] = np.inf
+        pay[(pick >= 0.01) & (pick < 0.02)] = -np.inf
+        pay[(pick >= 0.02) & (pick < 0.025)] = np.nan
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(keys), t(pay), t(np.arange(M) < n_valid)
+
+
+def lookback_lens(rng, shape: str):
+    """Run lengths that exercise the look-back at BM = 512: one segment
+    over 66 tiles, segments of exactly BM rows (tile-aligned, then not),
+    M = k * BM - 1 and k * BM + 1, a key repeated over 300,000 rows."""
+    BM = 512
+    if shape == "span_over_64_tiles":
+        return [37, 1200, 66 * BM + 5, 300, 811]
+    if shape == "span_exactly_bm":
+        return [BM, BM, 100, BM, BM, 412, BM, 3]
+    if shape == "k_bm_minus_1":
+        lens = list(rng.integers(1, 10, 200)) + [2 * BM]
+        lens[-1] += 7 * BM - 1 - sum(lens)
+        return lens
+    if shape == "k_bm_plus_1":
+        lens = [3 * BM + 1] + list(rng.integers(1, 30, 100))
+        lens[-1] += 10 * BM + 1 - sum(lens)
+        return lens
+    assert shape == "key_over_300k_rows"
+    return list(rng.geometric(0.1, 2000)) + [300_000] + \
+        list(rng.geometric(0.1, 2000))
+
+
+def plain_fold(keys, pay, valid, op):
+    """segment_combine_blocked, once per partition of a (P, M) call."""
+    import torch
+    from repro_torch.kernels.segment_combine import segment_combine_blocked
+    if keys.dim() == 1:
+        return segment_combine_blocked(keys, pay, valid, op, block_m=512)
+    outs = [segment_combine_blocked(keys[p], pay[p], valid[p], op,
+                                    block_m=512)
+            for p in range(keys.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1]
+                                                           for o in outs])
+
+
+def check_fold(keys, pay, valid, op, what: str = ""):
+    from repro_torch.kernels.segment_combine import segment_combine
     got, last_k = segment_combine(keys, pay, valid, op, block_m=512)
-    want, last_p = segment_combine_blocked(keys, pay, valid, op,
-                                           block_m=512)
-    if not (nan_matched_equal(got, want) and
-            bool((last_k == last_p).all())):
+    want, last_p = plain_fold(keys, pay, valid, op)
+    if not (same_bits(got, want) and bool((last_k == last_p).all())):
         raise AssertionError(
-            f"segment_combine {op} M={M} D={pay.shape[1]}: kernel != plain "
-            f"(max abs err {max_abs_err(got, want)})")
+            f"segment_combine {op} {what} shape {tuple(pay.shape)}: kernel "
+            f"!= plain (max abs err {max_abs_err(got, want)})")
     return max_abs_err(got, want)
 
 
 def fold_parity(device) -> float:
+    """The fold against segment_combine_blocked, bit for bit: one-stream
+    calls (P = 1) over random and edge-case streams, the look-back's
+    shapes, and batched (P = 4) calls whose partitions differ in kind
+    (one all invalid)."""
+    import torch
     rng = np.random.default_rng(0)
     err = 0.0
     for op in ("sum", "min", "max"):
@@ -235,44 +302,79 @@ def fold_parity(device) -> float:
                              "int32max"):
                     err = max(err, check_fold(*fold_case(rng, M, D, kind,
                                                          device), op))
+            for shape in ("span_over_64_tiles", "span_exactly_bm",
+                          "k_bm_minus_1", "k_bm_plus_1",
+                          "key_over_300k_rows"):
+                for kind in ("plain", "nonfinite"):
+                    case = fold_runs(rng, lookback_lens(rng, shape), D, kind,
+                                     device)
+                    err = max(err, check_fold(*case, op, shape))
+            for M in (7, 1500, 3 * 512 + 1, 100_003):
+                parts = [fold_case(rng, M, D, kind, device) for kind in
+                         ("plain", "all_invalid", "nonfinite", "int32max")]
+                batch = [torch.stack([c[i] for c in parts]) for i in
+                         range(3)]
+                err = max(err, check_fold(*batch, op, "batched"))
+        # a stream that is one key over 300,000 rows in all 4 partitions,
+        # and the widest payloads the kernel takes
+        lens = lookback_lens(rng, "key_over_300k_rows")
+        parts = [fold_runs(rng, lens, 1, "plain", device) for _ in range(4)]
+        batch = [torch.stack([c[i] for c in parts]) for i in range(3)]
+        err = max(err, check_fold(*batch, op, "batched 300k-row key"))
+        for D in (3, 4):
+            err = max(err, check_fold(*fold_case(rng, 5000, D, "nonfinite",
+                                                 device), op, f"D={D}"))
     return err
 
 
-def gather_case(rng, N: int, V: int, E: int, device):
+def gather_case(rng, N: int, V: int, E: int, device, order: str):
+    """values with +-inf and NaN; E sources, 10 % of them -1, in engine
+    order (sorted, as load_graph stores a partition's edges) or shuffled;
+    edge weights."""
     import torch
-    from repro_torch.kernels.csr_spmv import plan_layout_fixed
     values = rng.normal(size=(N, V)).astype(np.float32)
     pick = rng.random((N, V))
     values[pick < 0.02] = np.inf
     values[(pick >= 0.02) & (pick < 0.04)] = -np.inf
     values[(pick >= 0.04) & (pick < 0.06)] = np.nan
     src = rng.integers(0, N, E).astype(np.int32)
+    if order == "sorted":
+        src = np.sort(src)
     src[rng.random(E) < 0.1] = -1
     ev = rng.normal(size=E).astype(np.float32)
-    perm, tile_row = plan_layout_fixed(src, N)
     t = lambda a: torch.from_numpy(a).to(device)
-    return t(values), t(src), t(ev), (t(perm), t(tile_row))
+    return t(values), t(src), t(ev)
 
 
-def check_gather(values, src, ev, layout):
+def check_gather(values, src, ev, what: str = ""):
     from repro_torch.kernels.csr_spmv import edge_gather, edge_gather_ref
-    got = edge_gather(values, src, ev, layout)
+    got = edge_gather(values, src, ev)
     want = edge_gather_ref(values, src, ev)
-    if not nan_matched_equal(got, want):
+    if not same_bits(got, want):
         raise AssertionError(
-            f"csr_spmv N={values.shape[0]} E={src.shape[0]}: kernel != "
-            f"plain (max abs err {max_abs_err(got, want)})")
+            f"csr_spmv {what} N={values.shape[0]} V={values.shape[1]} "
+            f"E={src.shape[0]}: kernel != plain (max abs err "
+            f"{max_abs_err(got, want)})")
     return max_abs_err(got, want)
 
 
 def gather_parity(device) -> float:
+    """The gather against edge_gather_ref, exactly: V = 1, 2, 3 (the
+    vector path), 5 (the scalar one), E not a multiple of 4, sorted and
+    shuffled sources, with and without edge weights, and sources and
+    weights that start off the 16-byte grid (the scalar path)."""
     rng = np.random.default_rng(1)
     err = 0.0
-    for N, V, E in ((1, 1, 5), (300, 1, 1000), (1000, 2, 20_000),
-                    (100_001, 2, 1_000_003)):
-        values, src, ev, layout = gather_case(rng, N, V, E, device)
-        err = max(err, check_gather(values, src, ev, layout))
-        err = max(err, check_gather(values, src, None, layout))
+    for V in (1, 2, 3, 5):
+        for N, E in ((1, 5), (300, 1001), (1000, 20_003),
+                     (100_001, 1_000_003)):
+            for order in ("sorted", "shuffled"):
+                values, src, ev = gather_case(rng, N, V, E, device, order)
+                what = f"{order} V={V}"
+                err = max(err, check_gather(values, src, ev, what))
+                err = max(err, check_gather(values, src, None, what))
+                err = max(err, check_gather(values, src[1:], ev[1:],
+                                            what + " misaligned"))
     return err
 
 
@@ -351,89 +453,126 @@ def card_vs_cpu():
 
 # ------------------------------------------------------------- timings
 
-def fold_timing(vert, launches: int) -> dict:
-    """The sender fold at the main path's shape: partition 0's edge
-    stream, keys = its dst vids stably sorted, padded to 512 rows."""
+def fold_inputs(vert, seed: int = 5):
+    """The sender fold's inputs at the main path's shape: every
+    partition's edge stream (P, Ep) keyed by its dst vids, stably sorted
+    per partition, invalid slots int32 max at the tail; payload (P, Ep,
+    1) uniform from a seeded generator."""
     import torch
-    from repro_torch.kernels.backend import COMBINE_BLOCK_M
-    from repro_torch.kernels.segment_combine import (segment_combine,
-                                                     segment_combine_blocked)
-    dst, ok = vert.edge_dst[0], vert.edge_src[0] >= 0
-    key = torch.where(ok, dst, 2 ** 31 - 1)
-    key = torch.sort(key, stable=True).values
-    M0 = key.shape[0]
-    pad = (-M0) % COMBINE_BLOCK_M
-    key = torch.cat([key, torch.full((pad,), 2 ** 31 - 1, dtype=key.dtype,
-                                     device=key.device)])
-    M = key.shape[0]
-    valid = key != 2 ** 31 - 1
-    g = torch.Generator(device=key.device).manual_seed(5)
-    pay = torch.rand((M, 1), generator=g, device=key.device)
+    key = torch.where(vert.edge_src >= 0, vert.edge_dst, 2 ** 31 - 1)
+    key = torch.sort(key, dim=1, stable=True).values
+    g = torch.Generator(device=key.device).manual_seed(seed)
+    pay = torch.rand(key.shape + (1,), generator=g, device=key.device)
+    return key, pay, key != 2 ** 31 - 1
+
+
+def fold_timing(vert, launches: int) -> dict:
+    """The sender fold at the main path's shape, all P partitions in one
+    call (one launch): bit-equal to the plain fold, and to itself over 20
+    repeats (a look-back race would show as bits that change)."""
+    import torch
+    from repro_torch.kernels.segment_combine import segment_combine
+    key, pay, valid = fold_inputs(vert)
+    Pn, M = key.shape
     run_k = lambda: segment_combine(key, pay, valid, "sum", block_m=512)
-    run_p = lambda: segment_combine_blocked(key, pay, valid, "sum",
-                                            block_m=512)
-    got, want = run_k()[0], run_p()[0]
-    if not nan_matched_equal(got, want):
+    run_p = lambda: plain_fold(key, pay, valid, "sum")
+    got, last = run_k()
+    want, wlast = run_p()
+    if not (same_bits(got, want) and torch.equal(last, wlast)):
         raise AssertionError("segment_combine at the main-path shape: "
                              "kernel != plain")
-    _, inv = torch.unique_consecutive(key, return_inverse=True)
+    err = max_abs_err(got, want)
+    del want, wlast
+    for i in range(20):
+        again, alast = run_k()
+        if not (same_bits(again, got) and torch.equal(alast, last)):
+            raise AssertionError(f"segment_combine at the main-path shape: "
+                                 f"repeat {i} differs from the first call")
+    del again, alast
+    # the yardstick: scatter_reduce of every partition's valid rows (an
+    # invalid row adds nothing) in one call, the keys offset by partition
+    # (p * 2**32 + dst) and numbered in order
+    off = torch.arange(Pn, device=key.device, dtype=torch.int64)[:, None]
+    uniq, inv, counts = torch.unique_consecutive(
+        (off << 32 | key.long()).reshape(-1), return_inverse=True,
+        return_counts=True)
+    longest = int(counts[(uniq & 0xffffffff) != 2 ** 31 - 1].max())
     n_seg = int(inv.max()) + 1
+    ok = valid.reshape(-1)
+    idx, vpay = inv[ok][:, None], pay.reshape(-1, 1)[ok]
+    del inv
     run_l = lambda: torch.zeros((n_seg, 1), device=key.device) \
-        .scatter_reduce_(0, inv[:, None], pay, "sum", include_self=False)
+        .scatter_reduce_(0, idx, vpay, "sum", include_self=False)
     ms = time_ms(run_k)
-    plain_ms = time_ms(run_p, reps=5, warmup=1)
+    plain_ms = time_ms(run_p, reps=3, warmup=1)
     lib_ms = time_ms(run_l)
+    # where the time goes: each partition's stream alone, and its tiles
+    # with no valid row (its invalid tail)
+    parts = [(key[p:p + 1].contiguous(), pay[p:p + 1].contiguous(),
+              valid[p:p + 1].contiguous()) for p in range(Pn)]
+    per_part = [time_ms(lambda: segment_combine(*a, "sum", block_m=512))
+                for a in parts]
+    tiles = -(-M // 512)
+    pad = tiles * 512 - M
+    tail = (~torch.nn.functional.pad(valid, (0, pad)).reshape(Pn, tiles, 512)
+            .any(-1)).sum(-1).tolist()
+    del parts
     # keys, payload and valid read; folded payload and is_last written
-    nbytes = M * (4 + 4 + 1) + M * (4 + 1)
+    nbytes = Pn * M * (4 + 4 + 1) + Pn * M * (4 + 1)
     return dict(name="segment_combine", route="cuda", source=FOLD_SRC,
                 replaces=FOLD_REPLACES, launches=launches,
-                max_abs_err=max_abs_err(got, want), ms=ms,
-                plain_ms=plain_ms, bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
-                bound_by="bytes", library_ms=lib_ms, shape=dict(M=M, D=1))
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=lib_ms, repeats_identical=20,
+                per_partition_ms=per_part,
+                shape=dict(P=Pn, M=M, D=1, tiles=Pn * tiles,
+                           tail_tiles=tail,
+                           valid=valid.sum(-1).tolist(),
+                           longest_segment=longest))
 
 
 def gather_timing(vert, launches: int) -> dict:
-    """The edge gather at the main path's shape: all P partitions'
-    edges in one stream over PageRank's (P * Np, 2) values."""
+    """The edge gather at the main path's shape: all P partitions' edges
+    in one stream over PageRank's (P * Np, 2) values, in the engine's
+    order (each partition's edges sorted by source slot), and the same
+    sources in a seeded random order (the case a row blocking is for)."""
     import torch
-    from repro_torch.core.driver import plan_gather_layout
-    from repro_torch.core.plan import PhysicalPlan
     from repro_torch.kernels.csr_spmv import edge_gather, edge_gather_ref
     Pn, Np = vert.vid.shape
-    perm, tile_row = plan_gather_layout(PhysicalPlan(), vert)
-    off = (torch.arange(Pn, dtype=torch.int32, device=perm.device)
-           * Np)[:, None]
+    dev = vert.vid.device
+    off = (torch.arange(Pn, dtype=torch.int32, device=dev) * Np)[:, None]
     src = torch.where(vert.edge_src >= 0, vert.edge_src + off, -1) \
         .reshape(-1)
-    g = torch.Generator(device=perm.device).manual_seed(6)
-    values = torch.rand((Pn * Np, 2), generator=g, device=perm.device)
+    g = torch.Generator(device=dev).manual_seed(6)
+    values = torch.rand((Pn * Np, 2), generator=g, device=dev)
     values[::97, 0] = float("inf")
     values[::89, 1] = float("nan")
-    run_k = lambda: edge_gather(values, src, None, (perm, tile_row))
-    run_p = lambda: edge_gather_ref(values, src, None)
-    got, want = run_k(), run_p()
-    if not nan_matched_equal(got, want):
-        raise AssertionError("csr_spmv at the main-path shape: kernel != "
-                             "plain")
-    ok = (src >= 0)[:, None]
-    idx = src.clamp(min=0).long()
-    run_l = lambda: torch.where(ok, values.index_select(0, idx), 0.0)
-    ms = time_ms(run_k)
-    plain_ms = time_ms(run_p)
-    lib_ms = time_ms(run_l)
+    shuffled = src[torch.randperm(src.shape[0], generator=g, device=dev)]
+    res = {}
+    for name, s in (("sorted", src), ("shuffled", shuffled)):
+        run_k = lambda: edge_gather(values, s, None)
+        run_p = lambda: edge_gather_ref(values, s, None)
+        got, want = run_k(), run_p()
+        if not same_bits(got, want):
+            raise AssertionError(f"csr_spmv at the main-path shape "
+                                 f"({name} sources): kernel != plain")
+        err = max_abs_err(got, want)
+        del got, want
+        ok = (s >= 0)[:, None]
+        idx = s.clamp(min=0).long()
+        run_l = lambda: torch.where(ok, values.index_select(0, idx), 0.0)
+        res[name] = dict(ms=time_ms(run_k), plain_ms=time_ms(run_p),
+                         library_ms=time_ms(run_l), max_abs_err=err)
+        del ok, idx
     E, V = src.shape[0], values.shape[1]
-    # the function's bytes: src and values read, the output written; the
-    # layout's perm is this design's overhead, reported beside the bound
+    # the function's bytes: src and values read, the output written
     nbytes = E * 4 + values.numel() * 4 + E * V * 4
-    layout_bytes = perm.numel() * 4 + tile_row.numel() * 4
     return dict(name="csr_spmv", route="cuda", source=GATHER_SRC,
                 replaces=GATHER_REPLACES, launches=launches,
-                max_abs_err=max_abs_err(got, want), ms=ms,
-                plain_ms=plain_ms, bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
-                bound_by="bytes", library_ms=lib_ms,
-                layout_ms_at_bound=layout_bytes / MEM_BYTES_PER_S * 1e3,
-                shape=dict(E=E, slots=perm.numel(), rows=values.shape[0],
-                           V=V))
+                **res["sorted"], bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
+                bound_by="bytes", shuffled=res["shuffled"],
+                shape=dict(E=E, rows=values.shape[0], V=V,
+                           valid=int((src >= 0).sum())))
 
 
 def _device_ms(evt) -> float:
@@ -478,37 +617,31 @@ def profile_kernels(fn, reps: int, out_path, title: str) -> dict:
 
 
 def profile_phase(vert, n, out) -> dict:
-    """Where the time goes: the fold's three launches at the main path's
-    shape, and one PageRank / SSSP superstep at graph500 scale."""
+    """Where the time goes: the fold's one launch over all partitions at
+    the main path's shape, and one PageRank / SSSP superstep at graph500
+    scale."""
     import torch
     from repro_torch.core.driver import prepare_run
     from repro_torch.core.superstep import make_superstep
     from repro_torch.graph import SSSP, PageRank
-    from repro_torch.kernels.backend import COMBINE_BLOCK_M
     from repro_torch.kernels.segment_combine import segment_combine
     if out is not None and out.exists():
         out.unlink()
-    key = torch.sort(torch.where(vert.edge_src[0] >= 0, vert.edge_dst[0],
-                                 2 ** 31 - 1), stable=True).values
-    pad = (-key.shape[0]) % COMBINE_BLOCK_M
-    key = torch.cat([key, torch.full((pad,), 2 ** 31 - 1, dtype=key.dtype,
-                                     device=key.device)])
-    valid = key != 2 ** 31 - 1
-    pay = torch.ones((key.shape[0], 1), device=key.device)
+    key, pay, valid = fold_inputs(vert)
     res = {"fold": profile_kernels(
         lambda: segment_combine(key, pay, valid, "sum", block_m=512), 5,
-        out, "segment_combine at the main-path shape")}
+        out, "segment_combine at the main-path shape, all partitions")}
     del key, pay, valid
     for name, prog in (("pagerank_superstep", PageRank(n, iterations=15)),
                        ("sssp_superstep", SSSP(source=0))):
         v = dataclasses.replace(vert, value=vert.value[..., :prog.value_dims]
                                 .contiguous())
-        ec, layout, v, m, g = prepare_run(v, prog, prog.suggested_plan, None)
+        ec, v, m, g = prepare_run(v, prog, prog.suggested_plan, None)
         step = make_superstep(prog, prog.suggested_plan, ec)
-        state = step(v, m, g, layout)      # superstep 0: every vertex sends
-        res[name] = profile_kernels(lambda: step(*state, layout), 3, out,
+        state = step(v, m, g)              # superstep 0: every vertex sends
+        res[name] = profile_kernels(lambda: step(*state), 3, out,
                                     f"{name} (superstep 1, repeated)")
-        del state, v, m, g, layout
+        del state, v, m, g
         torch.cuda.empty_cache()
     return res
 

@@ -56,9 +56,10 @@ def _concrete_plan(plan, kernel_impl: Optional[str]) -> PhysicalPlan:
 
 
 def plan_gather_layout(plan: PhysicalPlan, vert: VertexRel):
-    """The csr_spmv gather layout on the graph's device for full-outer
-    plans, else None. Depends only on edge_src, which the engine never
-    rewrites, so one layout serves a whole run."""
+    """The reference's host layout for its row-blocked csr_spmv gather,
+    on the graph's device, for full-outer plans, else None (the JAX
+    driver's layout, kept as the port's copy of it). The port's gather
+    reads no layout, so neither driver calls this."""
     if plan.join != "full_outer":
         return None
     perm, tile_row = kbackend.plan_edge_layout(vert.edge_src.cpu().numpy(),
@@ -106,15 +107,14 @@ def grow_overflowed(ec: EngineConfig, delta, *,
 
 
 def prepare_run(vert, program, plan, ec):
-    """Shared set-up of both drivers: engine config, layout, initial
-    state."""
+    """Shared set-up of both drivers: engine config and initial state.
+    No host layout: the gather walks the edges in their own order."""
     ec = ec or default_engine_config(vert, program, plan)
-    layout = plan_gather_layout(plan, vert)
     gs = init_gs(program.agg_dims, vert.vid.device)
     vert = init_vertex_values(vert, program, gs)
     msg = empty_msgs(vert.num_partitions, ec.n_parts * ec.bucket_cap,
                      program.msg_dims, vert.vid.device)
-    return ec, layout, vert, msg, gs
+    return ec, vert, msg, gs
 
 
 def run_jit(vert: VertexRel, program: VertexProgram,
@@ -126,10 +126,10 @@ def run_jit(vert: VertexRel, program: VertexProgram,
     first overflow, which raises (run_host grows capacities instead)."""
     t0 = time.time()
     plan = _concrete_plan(plan, kernel_impl)
-    ec, layout, v, m, g = prepare_run(vert, program, plan, ec)
+    ec, v, m, g = prepare_run(vert, program, plan, ec)
     step = make_superstep(program, plan, ec)
     for _ in range(max_supersteps):
-        v, m, g = step(v, m, g, layout)
+        v, m, g = step(v, m, g)
         if bool(g.halt) or bool((g.overflow != 0).any()):
             break
     if int(g.overflow.sum()) > 0:
@@ -163,7 +163,7 @@ def run_host(vert: VertexRel, program: VertexProgram,
             "with the port's checkpoint slice")
     t0 = time.time()
     plan = _concrete_plan(plan, kernel_impl)
-    ec, layout, vert, msg, gs = prepare_run(vert, program, plan, ec)
+    ec, vert, msg, gs = prepare_run(vert, program, plan, ec)
     step = make_superstep(program, plan, ec)
     coll = StatsCollector(n_partitions=vert.num_partitions,
                           vertex_capacity=vert.capacity,
@@ -173,7 +173,7 @@ def run_host(vert: VertexRel, program: VertexProgram,
     i = 0
     while i < max_supersteps:
         ts = time.time()
-        vert2, msg2, gs2 = step(vert, msg, gs, layout)
+        vert2, msg2, gs2 = step(vert, msg, gs)
         ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
         if (ovf_delta > 0).any():
             ec = grow_overflowed(ec, ovf_delta,

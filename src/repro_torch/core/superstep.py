@@ -159,7 +159,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         agg = (out.aggregate, factive) if out.aggregate is not None else None
         return value, halt, gate & active, agg
 
-    def gen_messages(vert: VertexRel, value_new, gate_dense, gs, layout):
+    def gen_messages(vert: VertexRel, value_new, gate_dense, gs):
         """Edge-parallel send (dataflow D3). Under the left-outer plan the
         edge stream is COMPACTED to the frontier's edges first, so payload
         generation, the sender combine and the bucket sort run at
@@ -189,26 +189,21 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         if kernel_gather:
             # csr_spmv kernel (plain gather on CPU tensors): invalid lanes
             # read 0.0, masked by egate before anything observable
-            src_val = kbackend.edge_gather_values(value_new, edge_src,
-                                                  layout)
+            src_val = kbackend.edge_gather_values(value_new, edge_src)
         else:
             src_val = _take(value_new, esl)
         payload = program.send(src_vid, src_val, edge_val, edge_dst, gs)
         return edge_dst, payload, egate, ovf_edges
 
     def sender_combine(dst, payload, valid):
-        # segment_combine kernel: one blocked segmented fold per partition
-        # over the stably dst-sorted stream; the fold's tile carry runs
-        # along one partition's stream, so partitions are not fused
+        # segment_combine kernel: one blocked segmented fold over all
+        # partitions' stably dst-sorted streams, each folded on its own
         key = torch.where(valid, dst, INT32_MAX)
         order = torch.argsort(key, dim=1, stable=True)
         ks = torch.gather(key, 1, order)
         ps = _take(payload, order)
         vs = torch.gather(valid, 1, order)
-        outs = [kbackend.sorted_segment_fold(ks[p], ps[p], vs[p], op)
-                for p in range(dst.shape[0])]
-        folded = torch.stack([o[0] for o in outs])
-        is_last = torch.stack([o[1] for o in outs])
+        folded, is_last = kbackend.sorted_segment_fold(ks, ps, vs, op)
         return torch.where(is_last, ks, -1), folded, is_last
 
     def route(dst, payload, valid, cap, Np, presorted):
@@ -222,13 +217,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         flat = lambda a: a.reshape((P, -1) + a.shape[3:])
         return flat(r_dst), flat(r_pay), flat(r_val), ovf.sum()
 
-    def superstep(vert: VertexRel, msg: MsgRel, gs: GlobalState,
-                  layout=None):
-        """``layout`` (full-outer plans): the gather layout of
-        ``kbackend.plan_edge_layout`` as tensors on the graph's device
-        (``driver.plan_gather_layout``). The csr_spmv kernel needs it, so
-        a full-outer superstep on CUDA tensors raises without it; the
-        plain gather on CPU tensors ignores it."""
+    def superstep(vert: VertexRel, msg: MsgRel, gs: GlobalState):
         kbackend.resolve(plan.kernel_impl, vert.vid.device)
         P, Np = vert.vid.shape
         dev = vert.vid.device
@@ -243,8 +232,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         # 3. vertex updates (D2)
         value, halt, gate, agg = apply_updates(vert, out, active, frontier)
         # 4. message generation + sender combine + exchange (D3/D7)
-        dst, payload, valid, ovf_edges = gen_messages(vert, value, gate, gs,
-                                                      layout)
+        dst, payload, valid, ovf_edges = gen_messages(vert, value, gate, gs)
         presorted = False
         ovf_pack = torch.zeros((), dtype=torch.int32, device=dev)
         if plan.sender_combine:

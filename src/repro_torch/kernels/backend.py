@@ -5,14 +5,16 @@ cuda) against the device of the tensors a superstep runs on: on a CUDA
 tensor "auto" and "cuda" mean the CUDA kernels and "ref" raises; on a CPU
 tensor "auto" and "ref" mean the plain torch versions and "cuda" raises.
 There is no fallback from one to the other and no override from the
-environment. The rest is the layer the superstep calls: the gather
-layout planner, the partition-flattened edge gather, and the blocked
-segmented fold. Only the innermost function depends on the device, so a
-CPU run walks the control flow of a CUDA run.
+environment. The rest is the layer the superstep calls: the
+partition-flattened edge gather and the batched blocked segmented fold.
+Only the innermost function depends on the device, so a CPU run walks
+the control flow of a CUDA run. ``plan_edge_layout`` is the port's copy
+of the reference's host layout for its row-blocked gather; no superstep
+calls it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -23,14 +25,12 @@ from repro_torch.kernels.csr_spmv.ops import plan_layout_fixed
 from repro_torch.kernels.segment_combine.segment_combine import \
     segment_combine
 
-# Engine block sizes: BM is the edge-stream tile, BR the gather's
-# row block, COMBINE_BLOCK_M the fold's tile.
+# Block sizes: GATHER_BLOCK_M / GATHER_BLOCK_R are the reference
+# layout's tile and row block (plan_edge_layout), COMBINE_BLOCK_M the
+# fold's tile.
 GATHER_BLOCK_M = 512
 GATHER_BLOCK_R = 256
 COMBINE_BLOCK_M = 512
-
-INT32_MAX = 2 ** 31 - 1
-
 
 def resolve(impl: str, device) -> str:
     """-> "cuda" or "ref" for tensors on ``device``; raises where the
@@ -53,9 +53,11 @@ def resolve(impl: str, device) -> str:
 
 
 def plan_edge_layout(edge_src, n_rows: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side gather layout for a (P, Ep) edge_src block over (P,
-    n_rows) value rows, the partitions flattened into ONE (P*Ep,) edge
-    stream over P*n_rows rows, so one kernel launch serves all of them."""
+    """The reference's host-side gather layout for a (P, Ep) edge_src
+    block over (P, n_rows) value rows, the partitions flattened into ONE
+    (P*Ep,) edge stream over P*n_rows rows (the JAX engine's
+    ``plan_edge_layout``, element for element). The port's gather walks
+    the edges in their own order and reads no layout."""
     edge_src = np.asarray(edge_src)
     P, Ep = edge_src.shape
     off = (np.arange(P, dtype=np.int64) * n_rows)[:, None]
@@ -64,43 +66,36 @@ def plan_edge_layout(edge_src, n_rows: int) -> Tuple[np.ndarray, np.ndarray]:
                              block_r=GATHER_BLOCK_R)
 
 
-def edge_gather_values(values: torch.Tensor, edge_src: torch.Tensor,
-                       layout: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                       ) -> torch.Tensor:
+def edge_gather_values(values: torch.Tensor,
+                       edge_src: torch.Tensor) -> torch.Tensor:
     """``values[p, edge_src[p, e]]`` per edge. values: (P, Np, V);
-    edge_src: (P, Ep), -1 = invalid; layout from ``plan_edge_layout`` (as
-    tensors on the values' device). -> (P, Ep, V); invalid lanes read 0.0
-    (masked downstream by the edge gate). The gather is exact for every
-    float, so no class channel rides along."""
+    edge_src: (P, Ep), -1 = invalid. -> (P, Ep, V); invalid lanes read
+    0.0 (masked downstream by the edge gate). The partitions are
+    flattened into one edge stream over P * Np rows, one kernel launch.
+    The gather is exact for every float, so no class channel rides
+    along."""
     P, Np, V = values.shape
     Ep = edge_src.shape[1]
     off = (torch.arange(P, dtype=torch.int32, device=values.device)
            * Np)[:, None]
     flat_src = torch.where(edge_src >= 0, edge_src + off, -1).reshape(-1)
-    out = edge_gather(values.reshape(P * Np, V), flat_src, None, layout,
-                      block_m=GATHER_BLOCK_M, block_r=GATHER_BLOCK_R)
+    out = edge_gather(values.reshape(P * Np, V), flat_src, None)
     return out.reshape(P, Ep, V)
 
 
 def sorted_segment_fold(keys: torch.Tensor, payload: torch.Tensor,
                         valid: torch.Tensor, op: str):
-    """Inclusive segmented fold over a key-sorted stream — the engine's
-    sender-combine reduction. keys: (M,) ascending, invalid rows keyed
-    int32 max at the tail; payload: (M, D). Returns (folded (M, D),
-    is_last (M,) — already masked by valid). M is padded to a tile
-    multiple, so every tile but a lone short one is full."""
-    M, D = payload.shape
-    BM = min(COMBINE_BLOCK_M, M)
-    pad = (-M) % BM
-    if pad:
-        dev = payload.device
-        keys = torch.cat([keys, torch.full((pad,), INT32_MAX,
-                                           dtype=keys.dtype, device=dev)])
-        payload = torch.cat([payload, torch.zeros((pad, D),
-                                                  dtype=payload.dtype,
-                                                  device=dev)])
-        valid = torch.cat([valid, torch.zeros((pad,), dtype=torch.bool,
-                                              device=dev)])
-    folded, is_last = segment_combine(keys, payload, valid, op,
-                                      block_m=BM)
-    return folded[:M], is_last[:M]
+    """Inclusive segmented fold over P key-sorted streams at once — the
+    engine's sender-combine reduction. keys: (P, M), each row ascending
+    with its invalid rows keyed int32 max at the tail; payload: (P, M,
+    D); valid: (P, M). Returns (folded (P, M, D), is_last (P, M) —
+    already masked by valid): each partition folded on its own in tiles
+    of min(512, M) rows, a ragged last tile padded with (int32 max,
+    identity) as the reference's padding does. One kernel launch on CUDA
+    tensors.
+
+    is_last of a stream's last row is its valid bit. The reference pads
+    the stream itself, so there a valid last row keyed int32 max in a
+    ragged stream reads False; the engine keys no valid row int32 max."""
+    return segment_combine(keys, payload, valid, op,
+                           block_m=COMBINE_BLOCK_M)

@@ -1,86 +1,172 @@
-// Row-blocked edge gather (the D3 send gather) for Hopper, sm_90a.
+// Edge-order gather (the D3 send gather) for Hopper, sm_90a.
 //
 // Replaces: src/repro/kernels/csr_spmv/csr_spmv.py, edge_gather_pallas
 // (body _kernel), with the permuted loads and the scatter back to edge
-// order of csr_spmv/ops.py:edge_gather fused in.
-//   out[e] = values[flat_src[e]] * edge_val[e]   (edge_val may be absent)
-// over the host-planned layout (ops.py plan_layout_fixed): edges sorted
-// by source and padded so that each BM-slot tile reads one BR-row block,
-// perm[slot] = original edge or -1, tile_row[tile] = its row block.
+// order of csr_spmv/ops.py:edge_gather folded away.
+//   out[e] = values[flat_src[e]] * edge_val[e]   (edge_val may be absent;
+//   out[e] = 0.0 where flat_src[e] < 0)
 //
-// What bounds it: bytes. Per slot it reads perm (4 B); per edge flat_src
-// (4 B), edge_val when given (4 B), and writes out (4V B); the values are
-// read once per row block. No arithmetic beyond one optional multiply.
+// What bounds it: bytes. Per edge it reads flat_src (4 B), edge_val when
+// given (4 B), and writes out (4V B); the values table is read once. No
+// arithmetic beyond one optional multiply.
+//
 // The TPU kernel turned the gather into a one-hot (BM x BR) @ (BR x V)
-// MXU product, which turns inf and NaN into NaN (0 * inf), so the
-// reference moved non-finite values in a side class channel of V more
-// columns. A direct load is exact on this card for every float, so the
-// port gathers V columns and drops the channel: the same function with
-// half the value bytes.
+// MXU product over a host-planned layout that sorted the edges into row
+// blocks, because the TPU has no random access; the product turns inf
+// and NaN into NaN (0 * inf), so the reference moved non-finite values
+// in a side class channel. This card loads at random, and the values
+// table of the main path ((P * Np, V) floats, 43.6 MB at graph500-22)
+// sits in the 50 MB L2, so the port walks the edges in their own order:
+// no layout, no padding, no pre-zeroed output, and a direct load that is
+// exact for every float. The engine stores each partition's edges
+// sorted by source slot, so neighbouring edges read neighbouring rows.
 //
-// Design: one block of BM threads per tile. The block stages its row
-// block (BR x V floats, the last block masked at N) in shared memory,
-// then each thread takes one slot, reads e = perm[slot] and writes
-// out[e] = block[flat_src[e] - r0]. perm is injective over valid slots,
-// so no atomics; out is pre-zeroed, so edges never written read 0.0. A
-// tile of pure padding returns before staging anything.
+// Design: each thread takes four consecutive edges: one 16-byte load of
+// flat_src (and of edge_val), four row loads through the read-only path
+// (8- or 16-byte vectors where V = 2 or 4), and V 16-byte stores of the
+// 4V output floats, zeros written where the source is -1. The edge
+// stream is loaded and stored with the streaming (evict-first) hint so
+// that it does not push the values table out of L2. A tail of E % 4
+// edges goes edge by edge in the last thread; V above 4, and pointers not
+// aligned for the vectors, take a scalar kernel, one edge a thread.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void edge_gather_tiles(const float* __restrict__ values,
-                                  long long N, int V,
-                                  const int* __restrict__ flat_src,
-                                  const float* __restrict__ edge_val,
-                                  const int* __restrict__ perm,
-                                  const int* __restrict__ tile_row, int BM,
-                                  int BR, float* __restrict__ out) {
-  extern __shared__ float block[];
-  const long long t = blockIdx.x;
-  const int i = threadIdx.x;
-  const int e = perm[t * BM + i];
-  if (!__syncthreads_or(e >= 0)) return;   // a tile of pure padding
-  const long long r0 = (long long)tile_row[t] * BR;
-  const long long base = r0 * V;
-  const long long end = N * V;
-  for (int k = i; k < BR * V; k += blockDim.x)
-    block[k] = base + k < end ? values[base + k] : 0.0f;
-  __syncthreads();
-  if (e < 0) return;
-  const int src = flat_src[e];
-  const long long local = (long long)src - r0;
-  if (src < 0 || local < 0 || local >= BR) return;
-  const float* row = block + local * V;
-  float* dst = out + (long long)e * V;
+constexpr int THREADS = 256;
+
+template <int V>
+__device__ __forceinline__ void load_row(const float* __restrict__ values,
+                                         int src, float* r) {
+  if (src < 0) {
+#pragma unroll
+    for (int d = 0; d < V; ++d) r[d] = 0.0f;
+    return;
+  }
+  const long long b = (long long)src * V;
+  if constexpr (V == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(values + b));
+    r[0] = x.x;
+    r[1] = x.y;
+  } else if constexpr (V == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(values + b));
+    r[0] = x.x;
+    r[1] = x.y;
+    r[2] = x.z;
+    r[3] = x.w;
+  } else {
+#pragma unroll
+    for (int d = 0; d < V; ++d) r[d] = __ldg(values + b + d);
+  }
+}
+
+// One edge: the scalar path.
+__device__ __forceinline__ void gather_one(const float* __restrict__ values,
+                                           int V, int src,
+                                           const float* __restrict__ edge_val,
+                                           long long e, float* __restrict__ o) {
+  if (src < 0) {
+    for (int d = 0; d < V; ++d) o[d] = 0.0f;
+    return;
+  }
+  const float* row = values + (long long)src * V;
   if (edge_val != nullptr) {
     const float w = edge_val[e];
-    for (int d = 0; d < V; ++d) dst[d] = __fmul_rn(row[d], w);
+    for (int d = 0; d < V; ++d) o[d] = __fmul_rn(__ldg(row + d), w);
   } else {
-    for (int d = 0; d < V; ++d) dst[d] = row[d];
+    for (int d = 0; d < V; ++d) o[d] = __ldg(row + d);
   }
+}
+
+// Four edges a thread; the thread past the last full quad takes the
+// E % 4 edges left one by one.
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+gather_quads(const float* __restrict__ values,
+             const int* __restrict__ flat_src,
+             const float* __restrict__ edge_val, long long E,
+             float* __restrict__ out) {
+  const long long q = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long e0 = q * 4;
+  if (e0 >= E) return;
+  if (e0 + 4 > E) {
+    for (long long e = e0; e < E; ++e)
+      gather_one(values, V, flat_src[e], edge_val, e, out + e * V);
+    return;
+  }
+  const int4 s = __ldcs(reinterpret_cast<const int4*>(flat_src) + q);
+  const int src[4] = {s.x, s.y, s.z, s.w};
+  float r[4 * V];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) load_row<V>(values, src[j], r + j * V);
+  if (edge_val != nullptr) {
+    const float4 w4 = __ldcs(reinterpret_cast<const float4*>(edge_val) + q);
+    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (src[j] < 0) continue;
+#pragma unroll
+      for (int d = 0; d < V; ++d) r[j * V + d] = __fmul_rn(r[j * V + d], w[j]);
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(out + e0 * V);
+#pragma unroll
+  for (int c = 0; c < V; ++c)
+    __stcs(o + c, make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2],
+                              r[4 * c + 3]));
+}
+
+// One edge a thread: any V, any alignment.
+__global__ void __launch_bounds__(THREADS)
+gather_scalar(const float* __restrict__ values, int V,
+              const int* __restrict__ flat_src,
+              const float* __restrict__ edge_val, long long E,
+              float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (e < E) gather_one(values, V, flat_src[e], edge_val, e, out + e * V);
+}
+
+template <int V>
+void launch_quads(const float* values, const int* src, const float* ev,
+                  long long E, float* out, cudaStream_t stream) {
+  const long long quads = (E + 3) / 4;
+  gather_quads<V><<<(unsigned)((quads + THREADS - 1) / THREADS), THREADS,
+                    0, stream>>>(values, src, ev, E, out);
+}
+
+bool aligned(const void* p, uintptr_t a) {
+  return (reinterpret_cast<uintptr_t>(p) & (a - 1)) == 0;
 }
 
 }  // namespace
 
-// values: (N, V) float32; flat_src: (E,) int32, -1 = invalid; edge_val:
-// (E,) float32 or null; perm: (n_tiles * BM,) int32; tile_row: (n_tiles,)
-// int32; out: (E, V) float32, zeroed by the caller. BM <= 1024 threads,
-// BR * V * 4 bytes of shared memory <= 48 KiB.
-extern "C" int edge_gather_launch(const void* values, long long N, int V,
+// values: (N, V) float32; flat_src: (E,) int32, -1 = invalid, else < N;
+// edge_val: (E,) float32 or null; out: (E, V) float32, every row of which
+// the kernel writes. One launch: the quad kernel where V <= 4 and the
+// pointers are aligned for its vectors, else the scalar kernel.
+extern "C" int edge_gather_launch(const void* values, int V,
                                   const void* flat_src, const void* edge_val,
-                                  const void* perm, const void* tile_row,
-                                  long long n_tiles, int BM, int BR,
-                                  void* out, void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (V <= 0 || BM <= 0 || BM > 1024 || BR <= 0 ||
-      (long long)BR * V * 4 > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  edge_gather_tiles<<<(unsigned)n_tiles, BM, BR * V * sizeof(float),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(values), N, V,
-      static_cast<const int*>(flat_src),
-      static_cast<const float*>(edge_val), static_cast<const int*>(perm),
-      static_cast<const int*>(tile_row), BM, BR, static_cast<float*>(out));
+                                  long long E, void* out, void* stream) {
+  if (E <= 0) return 0;
+  if (V <= 0) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* vals = static_cast<const float*>(values);
+  auto* src = static_cast<const int*>(flat_src);
+  auto* ev = static_cast<const float*>(edge_val);
+  auto* o = static_cast<float*>(out);
+  const uintptr_t row_align = V == 2 ? 8 : V == 4 ? 16 : 4;
+  const bool vec = V <= 4 && aligned(src, 16) && aligned(o, 16) &&
+                   (ev == nullptr || aligned(ev, 16)) &&
+                   aligned(vals, row_align);
+  switch (vec ? V : 0) {
+    case 1: launch_quads<1>(vals, src, ev, E, o, s); break;
+    case 2: launch_quads<2>(vals, src, ev, E, o, s); break;
+    case 3: launch_quads<3>(vals, src, ev, E, o, s); break;
+    case 4: launch_quads<4>(vals, src, ev, E, o, s); break;
+    default:
+      gather_scalar<<<(unsigned)((E + THREADS - 1) / THREADS), THREADS, 0,
+                      s>>>(vals, V, src, ev, E, o);
+  }
   return (int)cudaGetLastError();
 }

@@ -112,5 +112,6 @@ def test_wrapper_takes_the_kernel_only_on_cuda():
     _port(keys, pay, valid, "sum")
     assert counter.launches == before
     with pytest.raises(ValueError):
-        segment_combine_cuda(torch.from_numpy(keys), torch.from_numpy(pay),
-                             "sum", 512)
+        segment_combine_cuda(torch.from_numpy(keys)[None],
+                             torch.from_numpy(pay)[None],
+                             torch.from_numpy(valid)[None], "sum", 512)

@@ -24,7 +24,6 @@ import repro_torch.core as T
 import repro_torch.graph as TG
 from repro.core.superstep import make_superstep as j_make_superstep
 from repro.kernels import backend as j_backend
-from repro_torch.core.driver import plan_gather_layout
 from repro_torch.core.superstep import make_superstep as t_make_superstep
 
 N = 220
@@ -94,9 +93,8 @@ def _run_pair(algo, plan_t, *, impl_j="ref", bucket_cap=None, steps=2):
         tin = (T.vertex_from_numpy(_np(state[0]), "cpu"),
                T.msgs_from_numpy(_np(state[1]), "cpu"),
                T.gs_from_numpy(_np(state[2]), "cpu"))
-        tlayout = plan_gather_layout(plan_t, tin[0])
         jout = jstep(state[0], state[1], state[2], None, jlayout)
-        tout = tstep(*tin, tlayout)
+        tout = tstep(*tin)
         _compare(jout, tout, algo)
         state = jout
     return state
