@@ -15,8 +15,10 @@ and never prints its last line):
    all-invalid streams, NaN/+-inf payloads, int32-max keys; the
    look-back's shapes: a segment over 66 tiles, segments of exactly 512
    rows, M = k * 512 +- 1, a key over 300,000 rows; batched (4, M) calls
-   whose partitions differ in kind) must match segment_combine_blocked
-   bit for bit, one partition at a time. The gather (V = 1, 2, 3 and 5,
+   whose partitions differ in kind; a ragged (4, 1000) call where one
+   partition ends in a valid row keyed int32 max, whose is_last must read
+   False as the reference's padding makes it) must match
+   segment_combine_blocked bit for bit, one partition at a time. The gather (V = 1, 2, 3 and 5,
    E not a multiple of 4, sorted and shuffled sources, with and without
    edge weights, pointers off the 16-byte grid) must match
    edge_gather_ref exactly. Flash
@@ -79,6 +81,28 @@ and never prints its last line):
    (wrapper_ms: one launch, no other op), the host's time to enqueue one
    entry-point call (host_us, the two tensor maps' encoding included),
    and at decode the host's time for one tensor-map encode.
+10. mutations and the library programs at the graph path's shape, each
+   run with the counts set to 0 before it and read after it: BFS and
+   Reachability from vertex 0 (left-outer + sender combine; the fold must
+   launch) equal scipy's hop counts and reached set; KCore (k = 48) on
+   graph500-22 made symmetric (134.2 M edge slots; fold and gather must
+   launch) equals a scipy peeling to its fixed point; PathMerge (16
+   rounds) on a 2**22-vertex chain equals the port's CPU path bit for
+   bit (run in a child process started after the build, so that it
+   overlaps the card phases), conserves its mass, and launches the
+   gather; an insert program at the default mutation_cap regrows it and
+   lands on its closed form; a custom (selection) combine at webmap-
+   tiny's shape, sender combine on and off, equals the CPU path. Prints
+   each run's supersteps, median superstep s and launches, k, the core's
+   size, the survivors and the regrow events.
+11. checkpoints and recovery: SSSP with checkpoint_every=3 and
+   recover=True, a one-shot WorkerFailure(1) after superstep 5: one
+   recovery event, the superstep-3 snapshot restored onto 3 partitions,
+   distances equal scipy's and the phase-3 run. PageRank with a snapshot
+   at superstep 10: save -> load bit-equal in every field; resumed from
+   it, ranks within rtol 1e-5 of the uninterrupted run and 1e-4 of
+   scipy. Prints the seconds of each save (savez_compressed, then its
+   CRC), each CRC check, load and repartition, with the snapshot bytes.
 
 Before its last line it prints the card's nvidia-smi line and one JSON
 line with every kernel's name, route, source, the TPU kernel it
@@ -94,6 +118,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -222,6 +247,18 @@ def fold_case(rng, M: int, D: int, kind: str, device):
     return t(keys.astype(np.int32)), t(pay), t(valid)
 
 
+def fold_ragged_int32max(rng, M: int, D: int, device):
+    """A ragged stream whose rows are all valid and whose last rows are
+    keyed int32 max: the reference pads the stream with int32-max keys,
+    so is_last of its last row reads False."""
+    import torch
+    keys = np.sort(rng.integers(0, max(M // 6, 2), M)).astype(np.int32)
+    keys[-5:] = 2 ** 31 - 1
+    t = lambda a: torch.from_numpy(a).to(device)
+    return t(keys), t(rng.normal(size=(M, D)).astype(np.float32)), \
+        t(np.ones(M, bool))
+
+
 def fold_runs(rng, lens, D: int, kind: str, device):
     """A stream of runs of equal keys with the given lengths (keys 1, 4,
     7, ...), a few invalid rows at the tail (all of them for
@@ -324,6 +361,17 @@ def fold_parity(device) -> float:
         for D in (3, 4):
             err = max(err, check_fold(*fold_case(rng, 5000, D, "nonfinite",
                                                  device), op, f"D={D}"))
+        # a ragged (4, 1000) call where only partition 1 ends in a valid
+        # row keyed int32 max (is_last False there, as in the reference)
+        for D in (1, 3):
+            parts = [fold_case(rng, 1000, D, kind, device) for kind in
+                     ("plain", "int32max", "all_invalid", "nonfinite")]
+            parts[1] = fold_ragged_int32max(rng, 1000, D, device)
+            batch = [torch.stack([c[i] for c in parts]) for i in range(3)]
+            err = max(err, check_fold(*batch, op, "ragged int32-max end"))
+            if bool(plain_fold(*batch, op)[1][1, -1]):
+                raise AssertionError("plain fold: is_last of a ragged "
+                                     "stream's int32-max last row")
     return err
 
 
@@ -407,6 +455,7 @@ def run_main_path(edges, n, device, stats_out: dict):
 
 
 def check_main_path(values, edges, n):
+    """-> (scipy PageRank, scipy hop counts), for the later phases."""
     from repro_torch.graph.algorithms import INF
     pr = values["pagerank"][:, 0].astype(np.float64)
     ref = pagerank_reference(edges, n, 15)
@@ -423,6 +472,7 @@ def check_main_path(values, edges, n):
         f"{int(np.isfinite(hops).sum())} reached")
     if bad:
         raise AssertionError(f"sssp differs from scipy at {bad} vertices")
+    return ref, hops
 
 
 def card_vs_cpu():
@@ -644,6 +694,479 @@ def profile_phase(vert, n, out) -> dict:
         del state, v, m, g
         torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------------- phase 10
+
+KCORE_K = 48     # graph500-22 made symmetric: neither empty nor whole
+CHAIN_SCALE = 22  # PathMerge's chain: 2**22 k-mer vertices
+
+
+def free(device):
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def reset_counters():
+    from repro_torch.kernels import COUNTERS
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def drive(prog, edges, n, vd, device, plan=None, **kw):
+    """One run of ``prog`` through load_graph -> run_host on ``device``,
+    with the counts set to 0 just before run_host and read just after.
+    -> (RunResult, stats dict with the launches of this run)."""
+    import torch
+    from repro_torch.core import load_graph, run_host
+    from repro_torch.kernels import COUNTERS
+    vert = load_graph(edges, n, P, value_dims=vd, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = run_host(vert, prog, plan or prog.suggested_plan,
+                   max_supersteps=kw.pop("max_supersteps", 100), **kw)
+    sync()
+    run_s = time.perf_counter() - t0
+    walls = [st["wall_s"] for st in res.stats if "wall_s" in st]
+    return res, dict(
+        supersteps=res.supersteps, run_s=run_s,
+        superstep_median_s=statistics.median(walls) if walls else None,
+        events=[st["event"] for st in res.stats if "event" in st],
+        launches={k: c.launches for k, c in COUNTERS.items()})
+
+
+def need_launches(what: str, stats: dict, names, device):
+    """The kernels that ``what`` must have launched on the card (on the
+    CPU the plain versions run and nothing launches)."""
+    if device != "cuda":
+        return
+    for k in names:
+        if stats["launches"][k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on {what}")
+
+
+def kcore_reference(edges: np.ndarray, n: int, k: int) -> np.ndarray:
+    """Synchronous peeling to a fixed point over the symmetric multigraph
+    of ``edges`` (each edge both ways, multiplicities kept): alive &=
+    (A + A^T) @ alive >= k. Every sum is a sum of integers."""
+    from scipy.sparse import csr_matrix
+    A = csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])),
+                   shape=(n, n))
+    alive = np.ones(n, bool)
+    while True:
+        a = alive.astype(np.float64)
+        nxt = alive & (A @ a + A.T @ a >= k)
+        if np.array_equal(nxt, alive):
+            return alive
+        alive = nxt
+
+
+def same_relation(a, b) -> bool:
+    """Two VertexRels equal field for field (floats bit for bit)."""
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name).cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if not (same_bits(x, y) if x.dtype == torch.float32 else
+                torch.equal(x, y)):
+            return False
+    return True
+
+
+def insert_program(n: int, shift: int = 3):
+    """Every vertex proposes at superstep 0 an insert of (vid + shift) % n
+    with value vid + 1000 (the reference's CrossInsert test program):
+    every existing vertex receives exactly one proposal, so its value
+    becomes ((v - shift) mod n) + 1000, exactly (< 2**24)."""
+    import torch
+    from repro_torch.core import ComputeOut, PhysicalPlan, VertexProgram
+
+    class InsertShift(VertexProgram):
+        value_dims = 1
+        msg_dims = 1
+        agg_dims = 1
+        combine_op = "sum"
+        mutates = True
+        suggested_plan = PhysicalPlan(join="full_outer", groupby="scatter")
+
+        def init_value(self, vid, out_degree, gs):
+            return torch.where(vid >= 0, vid, 0).float()[..., None]
+
+        def compute(self, vid, value, msg, has_msg, active, gs):
+            first = gs.superstep == 0
+            tgt = torch.where(first & (vid >= 0), (vid + shift) % n, -1)
+            return ComputeOut(
+                value=value, halt=(~first).expand(vid.shape),
+                send_gate=torch.zeros_like(first).expand(vid.shape),
+                aggregate=torch.zeros(vid.shape + (1,), device=vid.device),
+                insert_vid=tgt,
+                insert_value=torch.where(vid >= 0, vid, 0)
+                .float()[..., None] + 1000.0)
+
+        def send(self, src_vid, src_value, edge_val, dst_vid, gs):
+            return torch.zeros_like(src_value[..., 0:1])
+
+    return InsertShift()
+
+
+def min_label_program():
+    """Label propagation with a witness under a custom combine: value =
+    [label, the vid that sent it], a message (label, sender); the combine
+    selects the row with the smaller label (the earlier one on a tie), so
+    it is exact in any bracketing."""
+    import torch
+    from repro_torch.core import ComputeOut, VertexProgram
+    from repro_torch.graph.algorithms import INF
+
+    class MinLabel(VertexProgram):
+        value_dims = 2
+        msg_dims = 2
+        agg_dims = 1
+        combine_op = "custom"
+
+        def combine_identity(self):
+            return torch.full((2,), float("inf"))
+
+        def combine(self, a, b):
+            return torch.where(a[..., 0:1] <= b[..., 0:1], a, b)
+
+        def init_value(self, vid, out_degree, gs):
+            lab = torch.where(vid >= 0, vid, 0).float()
+            return torch.stack([lab, lab], -1)
+
+        def compute(self, vid, value, msg, has_msg, active, gs):
+            cur = value[..., 0]
+            inc = torch.where(has_msg, msg[..., 0], INF)
+            better = inc < cur
+            new = torch.stack([torch.where(better, inc, cur),
+                               torch.where(better, msg[..., 1],
+                                           value[..., 1])], -1)
+            send = better | (gs.superstep == 0)
+            return ComputeOut(value=new, halt=torch.ones_like(send),
+                              send_gate=send,
+                              aggregate=torch.zeros(vid.shape + (1,),
+                                                    device=vid.device))
+
+        def send(self, src_vid, src_value, edge_val, dst_vid, gs):
+            return torch.stack([src_value[..., 0], src_vid.float()], -1)
+
+    return MinLabel()
+
+
+def path_merge_cpu(out_path: str, scale: int):
+    """The port's CPU path of phase 10's PathMerge run on a 2**scale
+    chain, in a process of its own (``chip_smoke.py --path-merge-cpu OUT
+    SCALE``) so that it overlaps the card phases: writes the final vertex
+    relation and the run's supersteps and seconds to OUT (npz)."""
+    import torch
+    from repro_torch.core import vertex_to_numpy
+    from repro_torch.graph import PathMerge, chain_graph
+    torch.set_num_threads(4)
+    nc = 2 ** scale
+    res, st = drive(PathMerge(rounds=16), chain_graph(nc), nc, 2, "cpu")
+    np.savez(out_path, supersteps=res.supersteps, run_s=st["run_s"],
+             **vertex_to_numpy(res.vertex))
+
+
+class PathMergeChild:
+    """``path_merge_cpu`` in a child process, started after the build and
+    joined in phase 10; ``stop`` ends it whatever happened."""
+
+    def __init__(self, tmpdir: str):
+        self.out = str(Path(tmpdir) / "path_merge_cpu.npz")
+        self.err = open(Path(tmpdir) / "path_merge_cpu.err", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--path-merge-cpu", self.out, str(CHAIN_SCALE)],
+            stdout=subprocess.DEVNULL, stderr=self.err)
+
+    def result(self):
+        """-> (VertexRel on the CPU, supersteps, run s, wait s)."""
+        from repro_torch.core import vertex_from_numpy
+        t = time.perf_counter()
+        rc = self.proc.wait(timeout=900)
+        waited = time.perf_counter() - t
+        if rc != 0:
+            self.err.seek(0)
+            raise AssertionError(f"PathMerge CPU process failed ({rc}): "
+                                 f"{self.err.read()[-2000:]}")
+        z = dict(np.load(self.out))
+        return (vertex_from_numpy(z, "cpu"), int(z["supersteps"]),
+                float(z["run_s"]), waited)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+
+
+def mutations_and_programs(edges, n, hops, path_merge_child=None, *,
+                           device="cuda", k=KCORE_K,
+                           chain_scale=CHAIN_SCALE) -> dict:
+    """Phase 10 at the graph path's shape: BFS and Reachability from
+    vertex 0 held to scipy's hop counts, KCore on the symmetric graph held
+    to a scipy peeling, PathMerge on a 2**22-vertex chain card vs the
+    port's CPU path (``path_merge_child``'s, else run here), an insert
+    program held to its closed form, and a custom combine card vs CPU at
+    webmap-tiny's shape. ``device="cpu"`` rehearses it on the plain
+    path."""
+    from repro_torch.core import PhysicalPlan, gather_values
+    from repro_torch.graph import (BFS, KCore, PathMerge, Reachability,
+                                   chain_graph, rmat_graph)
+    from repro_torch.graph.algorithms import INF
+    out = {}
+    reached = np.isfinite(hops)
+    want_lv = np.where(reached, hops, np.float32(INF)).astype(np.float32)
+
+    # BFS and Reachability, left-outer + sender combine
+    res, st = drive(BFS(0), edges, n, 1, device)
+    need_launches("BFS", st, ("segment_combine",), device)
+    lv = gather_values(res.vertex, n)[:, 0]
+    bad = int((lv != want_lv).sum())
+    if bad:
+        raise AssertionError(f"BFS differs from scipy at {bad} vertices")
+    out["bfs"] = st
+    del res
+    res, st = drive(Reachability(0), edges, n, 1, device)
+    need_launches("Reachability", st, ("segment_combine",), device)
+    got = gather_values(res.vertex, n)[:, 0] > 0
+    if not np.array_equal(got, reached):
+        raise AssertionError("Reachability differs from scipy at "
+                             f"{int((got != reached).sum())} vertices")
+    out["reachability"] = dict(st, reached=int(got.sum()))
+    del res
+    free(device)
+    log(f"phase 10: BFS {json.dumps(out['bfs'])}; reachability "
+        f"{json.dumps(out['reachability'])}")
+
+    # KCore on the symmetric multigraph (134 M directed edge slots)
+    t = time.perf_counter()
+    sym = np.concatenate([edges, edges[:, ::-1]])
+    res, st = drive(KCore(k), sym, n, 2, device)
+    del sym
+    need_launches("KCore", st, ("segment_combine", "csr_spmv"), device)
+    alive = gather_values(res.vertex, n)[:, 1] > 0
+    del res
+    free(device)
+    t_ref = time.perf_counter()
+    want = kcore_reference(edges, n, k)
+    ref_s = time.perf_counter() - t_ref
+    if not 0 < want.sum() < n:
+        raise AssertionError(f"k = {k}: core of {int(want.sum())} "
+                             f"of {n} vertices")
+    if not np.array_equal(alive, want):
+        raise AssertionError(f"KCore differs from the scipy peeling at "
+                             f"{int((alive != want).sum())} vertices")
+    out["kcore"] = dict(st, k=k, core=int(alive.sum()),
+                        oracle_s=ref_s, phase_s=time.perf_counter() - t)
+    log(f"phase 10: KCore {json.dumps(out['kcore'])}")
+
+    # PathMerge (Genomix chain compaction) on 2**22 k-mer vertices
+    t = time.perf_counter()
+    nc = 2 ** chain_scale
+    chain = chain_graph(nc)
+    pm = PathMerge(rounds=16)
+    res_g, st = drive(pm, chain, nc, 2, device)
+    need_launches("PathMerge", st, ("csr_spmv",), device)
+    if path_merge_child is not None:
+        cpu_vert, cpu_steps, cpu_s, waited = path_merge_child.result()
+    else:
+        res_c, _ = drive(pm, chain, nc, 2, "cpu")
+        cpu_vert, cpu_steps, cpu_s, waited = (res_c.vertex, res_c.supersteps,
+                                              None, None)
+    if not same_relation(res_g.vertex, cpu_vert) or \
+            res_g.supersteps != cpu_steps:
+        raise AssertionError("PathMerge on the card differs from the CPU "
+                             "path")
+    vid = res_g.vertex.vid.reshape(-1).cpu().numpy()
+    acc = res_g.vertex.value.reshape(-1, 2).cpu().numpy()[vid >= 0, 0]
+    mass = float(acc.astype(np.float64).sum())
+    if mass != nc:
+        raise AssertionError(f"PathMerge lost mass: {mass} != {nc}")
+    out["path_merge"] = dict(st, survivors=int((vid >= 0).sum()),
+                             mass=mass, cpu_run_s=cpu_s,
+                             cpu_wait_s=waited,
+                             phase_s=time.perf_counter() - t)
+    del res_g, cpu_vert, chain
+    free(device)
+    log(f"phase 10: PathMerge {json.dumps(out['path_merge'])}")
+
+    # inserts at the default mutation_cap (64): the run regrows it
+    prog = insert_program(n)
+    res, st = drive(prog, edges, n, 1, device)
+    regrows = [dict(superstep=e["superstep"], mutation_cap=e["mutation_cap"],
+                    sources=e["sources"])
+               for e in res.stats if e.get("event") == "regrow"]
+    if not any(2 in e["sources"] for e in regrows):
+        raise AssertionError("the insert program never regrew the "
+                             "mutation capacity")
+    got = gather_values(res.vertex, n)[:, 0]
+    want = ((np.arange(n) - 3) % n + 1000).astype(np.float32)
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"inserts: {bad} vertices off the closed form")
+    out["insert"] = dict(st, regrows=regrows)
+    del res
+    free(device)
+    log(f"phase 10: inserts {json.dumps(out['insert'])}")
+
+    # a custom combine at webmap-tiny's shape, card vs CPU
+    nt = 20_000
+    tiny = rmat_graph(nt, 240_000, seed=1)
+    out["custom"] = {}
+    for sc in (True, False):
+        plan = PhysicalPlan(join="full_outer", groupby="sort",
+                            sender_combine=sc)
+        rg, st = drive(min_label_program(), tiny, nt, 2, device, plan=plan)
+        rc, _ = drive(min_label_program(), tiny, nt, 2, "cpu", plan=plan)
+        if not same_relation(rg.vertex, rc.vertex) or \
+                rg.supersteps != rc.supersteps:
+            raise AssertionError(f"custom combine (sender_combine={sc}): "
+                                 "card differs from the CPU path")
+        out["custom"][f"sender_combine={sc}"] = st
+    log(f"phase 10: custom combine {json.dumps(out['custom'])}")
+    return out
+
+
+# ------------------------------------------------------------- phase 11
+
+class CheckpointClock:
+    """Times the checkpoint module's I/O inside the drivers' calls: each
+    save (np.savez_compressed, then the CRC of the file), each load and
+    each repartition, with the snapshot's bytes. Installed around a phase
+    and restored after it."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import repro_torch.runtime.checkpoint as ck
+        self.ck = ck
+        self.saved = (ck.np.savez_compressed, ck._file_crc,
+                      ck.load_checkpoint, ck.repartition)
+        savez, crc, load, repart = self.saved
+
+        def timed(kind, fn, size_of=None):
+            def f(*a, **kw):
+                t = time.perf_counter()
+                r = fn(*a, **kw)
+                ev = {"what": kind, "s": time.perf_counter() - t}
+                if size_of is not None:
+                    ev["bytes"] = Path(size_of(a)).stat().st_size
+                self.events.append(ev)
+                return r
+            return f
+        ck.np.savez_compressed = timed("savez_compressed", savez,
+                                       lambda a: a[0])
+        ck._file_crc = timed("crc", crc)
+        ck.load_checkpoint = timed("load", load, lambda a: a[0])
+        ck.repartition = timed("repartition", repart)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ck.np.savez_compressed, self.ck._file_crc,
+         self.ck.load_checkpoint, self.ck.repartition) = self.saved
+        return False
+
+
+def checkpoints_and_recovery(edges, n, values, pr_ref, hops, *,
+                             device="cuda") -> dict:
+    """Phase 11 at the graph path's shape: SSSP under recover=True with a
+    one-shot WorkerFailure(1) after superstep 5 (restore of the
+    superstep-3 snapshot onto 3 partitions, replay), and PageRank resumed
+    from its superstep-10 snapshot."""
+    from repro_torch.core import gather_values, run_host
+    from repro_torch.graph import SSSP, PageRank
+    from repro_torch.graph.algorithms import INF
+    from repro_torch.runtime.failure import WorkerFailure
+    out = {}
+    with tempfile.TemporaryDirectory() as d, CheckpointClock() as clock:
+        fired = []
+
+        def inject(i, v, m, g):
+            if i == 5 and not fired:
+                fired.append(i)
+                raise WorkerFailure(1, "injected after superstep 5")
+
+        sp = SSSP(source=0)
+        res, st = drive(sp, edges, n, 1, device, checkpoint_every=3,
+                        checkpoint_dir=d, recover=True,
+                        failure_injector=inject)
+        if len(res.recovery) != 1:
+            raise AssertionError(f"recovery events: {res.recovery}")
+        ev = res.recovery[0]
+        if not (str(ev["restored_from"]).endswith("ckpt_000003.npz")
+                and ev["healthy_workers"] == 3
+                and res.vertex.num_partitions == 3):
+            raise AssertionError(f"elastic restore went wrong: {ev}")
+        dist = gather_values(res.vertex, n)[:, 0]
+        want = np.where(np.isinf(hops), np.float32(INF), hops) \
+            .astype(np.float32)
+        bad = int((dist != want).sum())
+        if bad or not np.array_equal(dist, values["sssp"][:, 0]):
+            raise AssertionError(f"recovered SSSP differs from scipy at "
+                                 f"{bad} vertices, or from the "
+                                 "uninterrupted run")
+        out["sssp_recovery"] = dict(
+            st, recovery={k: ev[k] for k in ("restored_from",
+                                             "healthy_workers",
+                                             "blacklist")})
+        del res
+        free(device)
+
+        # PageRank: snapshot at superstep 10, round trip, resume
+        pr = PageRank(n, iterations=15)
+        kept = {}
+
+        def keep(i, v, m, g, rec):
+            if i == 10:
+                kept["state"] = (v, m, g)
+
+        res, st = drive(pr, edges, n, 2, device, checkpoint_every=10,
+                        checkpoint_dir=d, on_superstep=keep)
+        full = gather_values(res.vertex, n)[:, 0]
+        vert = res.vertex
+        del res
+        path = str(Path(d) / "ckpt_000010.npz")
+        loaded = clock.ck.load_checkpoint(path, device=device)
+        if not all(same_relation(a, b) for a, b in
+                   zip(loaded, kept.pop("state"))):
+            raise AssertionError("PageRank snapshot: save -> load is not "
+                                 "bit-equal")
+        del loaded
+        t = time.perf_counter()
+        res = run_host(vert, pr, pr.suggested_plan, max_supersteps=100,
+                       resume_from=path)
+        free(device)
+        resume_s = time.perf_counter() - t
+        ranks = gather_values(res.vertex, n)[:, 0]
+        # two card runs need not agree bit for bit: scatter_add_ on CUDA
+        # adds in an order that changes from run to run
+        card_err = float(np.abs(ranks - full).max())
+        if not np.allclose(ranks, full, rtol=1e-5, atol=0) or \
+                not np.allclose(ranks.astype(np.float64), pr_ref,
+                                rtol=1e-4, atol=0):
+            raise AssertionError(f"resumed PageRank off: max abs err vs the "
+                                 f"uninterrupted run {card_err}")
+        if not np.allclose(full, values["pagerank"][:, 0], rtol=1e-5,
+                           atol=0):
+            raise AssertionError("PageRank with checkpoints differs from "
+                                 "the phase-3 run")
+        out["pagerank_resume"] = dict(
+            st, resumed_supersteps=res.supersteps - 10, resume_run_s=resume_s,
+            max_abs_err_vs_uninterrupted=card_err)
+        del res, vert
+        free(device)
+    out["checkpoint_io"] = clock.events
+    log(f"phase 11: {json.dumps(out)}")
+    return out
 
 
 # ------------------------------------------------------------- serving
@@ -978,8 +1501,7 @@ def serving_main_path(batch: int, prompt_len: int, max_new: int):
     from repro_torch.launch.serve import serve
     cfg = qwen_config()
     torch.cuda.reset_peak_memory_stats()
-    for c in COUNTERS.values():
-        c.reset()
+    reset_counters()
     res = serve(cfg, preset="full", batch=batch, prompt_len=prompt_len,
                 max_new=max_new, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1264,14 +1786,17 @@ def main(argv=None) -> int:
                     help="graph500 scale: 2**scale vertices, 16x edges")
     ap.add_argument("--profile-out", type=Path, default=None,
                     help="write the full profiler tables to this file")
+    ap.add_argument("--path-merge-cpu", nargs=2, default=None,
+                    help=argparse.SUPPRESS)   # phase 10's child process
     args = ap.parse_args(argv)
+    if args.path_merge_cpu:
+        path_merge_cpu(args.path_merge_cpu[0], int(args.path_merge_cpu[1]))
+        return 0
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's smoke run needs one")
         return 2
-    from repro_torch.core import load_graph
-    from repro_torch.graph import graph500
-    from repro_torch.kernels import COUNTERS, build
+    from repro_torch.kernels import build
 
     # 1. device + build
     name = torch.cuda.get_device_name(0)
@@ -1283,6 +1808,21 @@ def main(argv=None) -> int:
                                        counts.items()))
     for lib in SERVING_KERNELS:
         log(f"ptxas {lib}: {json.dumps(ptxas_usage(lib))}")
+    # phase 10's CPU PathMerge runs beside the card phases from here on
+    with tempfile.TemporaryDirectory() as tmp:
+        child = PathMergeChild(tmp)
+        try:
+            return card_phases(args, name, child)
+        finally:
+            child.stop()
+
+
+def card_phases(args, name: str, child) -> int:
+    """Phases 2-11 on the card; ``child`` is phase 10's CPU PathMerge."""
+    import torch
+    from repro_torch.core import load_graph
+    from repro_torch.graph import graph500
+    from repro_torch.kernels import COUNTERS
 
     # 2. kernel parity on the card
     t = time.perf_counter()
@@ -1306,16 +1846,14 @@ def main(argv=None) -> int:
     log(f"data: graph500-{args.scale} shape, {n} vertices, {len(edges)} "
         f"edges, generated in {prep_s:.1f} s")
     stats = {}
-    for c in COUNTERS.values():
-        c.reset()
+    reset_counters()
     values = run_main_path(edges, n, "cuda", stats)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in COUNTERS.items()}
     log(f"main path: {json.dumps(stats)}")
     log(f"graph path launches: {json.dumps(launches)}")
     check_launches("graph", launches, GRAPH_KERNELS)
-    check_main_path(values, edges, n)
-    del values
+    pr_ref, hops = check_main_path(values, edges, n)
 
     # 4. CC / PageRank card vs CPU at webmap-tiny's shape
     card_vs_cpu()
@@ -1334,7 +1872,7 @@ def main(argv=None) -> int:
         f"{stats['pagerank']['superstep_median_s']}, sssp "
         f"{stats['sssp']['superstep_median_s']}; data preparation s "
         f"{prep_s}")
-    del vert, edges
+    del vert
     torch.cuda.empty_cache()
 
     # 7. reduced qwen2-moe, card vs CPU
@@ -1371,6 +1909,20 @@ def main(argv=None) -> int:
     kernels += [flash_timing(s_launches["flash_attention"]),
                 gmm_timing(s_launches["moe_gmm"])]
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # 10. mutations and the library programs at the graph path's shape
+    t = time.perf_counter()
+    phase10 = mutations_and_programs(edges, n, hops, child)
+    log(f"phase 10: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps({k: v["launches"] for k, v in phase10.items()
+                      if "launches" in v}))
+
+    # 11. checkpoints and recovery
+    t = time.perf_counter()
+    checkpoints_and_recovery(edges, n, values, pr_ref, hops)
+    log(f"phase 11: {time.perf_counter() - t:.1f} s")
+    del edges, values
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,10 +6,12 @@
 * ``run_host`` — the superstep loop with per-superstep statistics
                  (Section 5.7 statistics collector), transparent capacity
                  growth on overflow (re-run the superstep from the retained
-                 previous state), and the left-outer frontier refit.
+                 previous state), the left-outer frontier refit, and
+                 checkpoints at superstep boundaries with resume and
+                 supervised recovery (Section 5.5).
 
-Both run on the device the graph was loaded on. Checkpoints, recovery,
-failure injection and plan="auto" come with later slices of the port.
+Both run on the device the graph was loaded on. plan="auto" comes with
+the planner slice of the port.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ class RunResult:
     stats: list = field(default_factory=list)
     wall_s: float = 0.0
     plan: Optional[PhysicalPlan] = None   # plan in effect at the end
+    recovery: list = field(default_factory=list)  # supervisor events
 
 
 def _concrete_plan(plan, kernel_impl: Optional[str]) -> PhysicalPlan:
@@ -145,33 +148,89 @@ def run_host(vert: VertexRel, program: VertexProgram,
              plan: PhysicalPlan = PhysicalPlan(), *,
              max_supersteps: int = 50,
              ec: Optional[EngineConfig] = None,
-             on_superstep: Optional[Callable] = None,
-             kernel_impl: Optional[str] = None,
              checkpoint_every: int = 0,
              checkpoint_dir: Optional[str] = None,
              resume_from: Optional[str] = None,
+             resume_parts: Optional[int] = None,
              recover: bool = False,
-             failure_injector: Optional[Callable] = None) -> RunResult:
+             max_retries: int = 3,
+             on_superstep: Optional[Callable] = None,
+             failure_injector: Optional[Callable] = None,
+             kernel_impl: Optional[str] = None) -> RunResult:
     """Superstep loop with statistics, capacity growth (grow only the
     overflowed capacities x2 and redo the superstep from the retained
-    state) and the left-outer frontier refit. ``wall_s`` of each record
-    ends in a device synchronisation."""
-    if checkpoint_every or checkpoint_dir or resume_from or recover \
-            or failure_injector is not None:
-        raise NotImplementedError(
-            "checkpoints, resume, recovery and failure injection come "
-            "with the port's checkpoint slice")
+    state), the left-outer frontier refit and checkpoints (every
+    ``checkpoint_every`` supersteps into ``checkpoint_dir``). ``wall_s``
+    of each record ends in a device synchronisation.
+
+    ``resume_from=<ckpt npz>`` restarts from a checkpoint, loaded onto
+    the device of ``vert`` (optionally re-hashed onto ``resume_parts``
+    partitions — the elastic restore). ``recover=True`` runs the whole
+    job under the failure manager's recovery supervisor: a recoverable
+    failure (WorkerFailure, disk I/O, typed corruption) restores the
+    latest VALID checkpoint onto the surviving partitions and replays;
+    application errors forward. ``failure_injector(i, vert, msg, gs)``
+    is called after each superstep (tests); the supervisor calls it
+    again on every replay, so it must fire once."""
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.checkpoint import save_checkpoint
+
+    if recover:
+        from repro_torch.runtime.checkpoint import latest_checkpoint
+        from repro_torch.runtime.failure import supervised_run
+        P0 = vert.num_partitions
+
+        def _attempt(healthy, resume):
+            return run_host(
+                vert, program, plan, max_supersteps=max_supersteps,
+                ec=ec, checkpoint_every=checkpoint_every,
+                checkpoint_dir=checkpoint_dir, resume_from=resume,
+                resume_parts=(healthy if resume is not None
+                              and healthy < P0 else None),
+                recover=False, on_superstep=on_superstep,
+                failure_injector=failure_injector,
+                kernel_impl=kernel_impl)
+
+        def _pick(bad):
+            if not checkpoint_dir:
+                return None
+            return latest_checkpoint(checkpoint_dir, skip=bad,
+                                     verify=True)
+
+        return supervised_run(_attempt, _pick, n_workers=P0,
+                              max_retries=max_retries,
+                              initial_resume=resume_from)
+
     t0 = time.time()
     plan = _concrete_plan(plan, kernel_impl)
-    ec, vert, msg, gs = prepare_run(vert, program, plan, ec)
+    i0 = 0
+    if resume_from is None:
+        ec, vert, msg, gs = prepare_run(vert, program, plan, ec)
+    else:
+        from repro_torch.runtime.checkpoint import (load_checkpoint,
+                                                    repartition)
+        vert, msg, gs = load_checkpoint(resume_from,
+                                        device=vert.vid.device)
+        if resume_parts is not None \
+                and resume_parts != vert.num_partitions:
+            vert, msg = repartition(vert, msg, resume_parts)
+        i0 = int(gs.superstep)
+        ec = ec or default_engine_config(vert, program, plan)
+        if msg.capacity > ec.n_parts * ec.bucket_cap:
+            # the checkpointed inbox is wider than the derived config (it
+            # grew mid-run): adopt its capacity instead of truncating it
+            ec = dataclasses.replace(
+                ec, bucket_cap=-(-msg.capacity // ec.n_parts))
+        msg = _regrow_msgs(msg, ec)
     step = make_superstep(program, plan, ec)
     coll = StatsCollector(n_partitions=vert.num_partitions,
                           vertex_capacity=vert.capacity,
                           msg_dims=program.msg_dims,
                           n_vertices=int((vert.vid >= 0).sum()))
     stats = []
-    i = 0
+    i = i0
     while i < max_supersteps:
+        faults.superstep_tick(i, "host")
         ts = time.time()
         vert2, msg2, gs2 = step(vert, msg, gs)
         ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
@@ -205,6 +264,11 @@ def run_host(vert: VertexRel, program: VertexProgram,
                 stats.append(coll.event(
                     i, "frontier-refit",
                     frontier_cap=ec.frontier_cap).as_dict())
+        if failure_injector is not None:
+            failure_injector(i, vert, msg, gs)
+        if checkpoint_every and i % checkpoint_every == 0 \
+                and checkpoint_dir:
+            save_checkpoint(checkpoint_dir, i, vert, msg, gs)
         if on_superstep is not None:
             on_superstep(i, vert, msg, gs, rec.as_dict())
         if bool(gs.halt):
@@ -215,9 +279,20 @@ def run_host(vert: VertexRel, program: VertexProgram,
 
 def _regrow_msgs(msg: MsgRel, ec: EngineConfig) -> MsgRel:
     """Pad capacity per source run, preserving the (n_parts, C) run layout
-    the merging connector's receiver group-by relies on."""
+    the merging connector's receiver group-by relies on. Restored
+    checkpoints whose capacity is not run-structured (a repartitioned
+    inbox) are end-padded (their first superstep must use a sorting
+    group-by, which the default plans do)."""
     P = msg.dst.shape[0]
     n, C_new = ec.n_parts, ec.bucket_cap
+    if msg.capacity % n:
+        pad = n * C_new - msg.capacity
+        if pad <= 0:
+            return msg
+        return MsgRel(dst=F.pad(msg.dst, (0, pad), value=-1),
+                      payload=F.pad(msg.payload, (0, 0, 0, pad)),
+                      valid=F.pad(msg.valid.to(torch.uint8), (0, pad))
+                      .bool())
     C_old = msg.capacity // n
     pad = C_new - C_old
     if pad <= 0:

@@ -4,7 +4,7 @@ leading partition axis P.
 * scatter      — hash group-by analogue: monoid scatter straight into
                  dense vid-slot-aligned buffers (named ops only).
 * sort         — sort-based group-by: stable argsort by key + segmented
-                 fold.
+                 fold (named ops and custom combine UDFs).
 * run-combine  — one-pass combine of presorted runs (the receiver side of
                  the m-to-n partitioning MERGING connector).
 
@@ -141,14 +141,18 @@ def sort_combine(slot, payload, valid, combine: Callable):
     return ks, folded, _lasts(ks) & vs
 
 
-def sort_combine_dense(slot, payload, valid, Np: int, op: str):
-    """Sort group-by materialized to dense slots (full-outer join input)."""
-    fn, ident = MONOIDS[op]
+def sort_combine_dense(slot, payload, valid, Np: int, op):
+    """Sort group-by materialized to dense slots (full-outer join input).
+    ``op`` is a monoid name or a custom ``(combine, identity)`` pair:
+    combine is elementwise over (..., D) rows, identity a (D,) tensor."""
+    fn, ident = MONOIDS[op] if isinstance(op, str) else op
     P, M, D = payload.shape
     ks, folded, is_last = sort_combine(slot, payload, valid, fn)
     tgt = torch.where(is_last & (ks < Np), ks, Np)           # Np = sink
-    dense = torch.full((P, Np + 1, D), ident, dtype=payload.dtype,
-                       device=payload.device)
+    dense = torch.empty((P, Np + 1, D), dtype=payload.dtype,
+                        device=payload.device)
+    dense[:] = torch.as_tensor(ident, dtype=payload.dtype,
+                               device=payload.device)
     dense.scatter_(1, _rows(tgt, D), folded)
     has = torch.zeros((P, Np + 1), dtype=torch.bool, device=payload.device)
     has.scatter_(1, tgt.long(), is_last)

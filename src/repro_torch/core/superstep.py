@@ -3,20 +3,24 @@
 
     Msg_i --[receiver group-by + combine]--> combined payloads      (D1)
     Vertex_i --[join: full-outer dense | left-outer frontier]--> compute
-    compute UDF --> value'/halt'/sends/aggregate                    (D2)
+    compute UDF --> value'/halt'/sends/aggregate/mutations          (D2)
     sends --[edge gather]--[sender combine]--[bucket]--[exchange]   (D3/D7)
     aggregates --[reduction]--> GS_{i+1}
+    mutations --[bucket + resolve]--> Vertex_{i+1}                  (D6)
 
 The superstep has one structure, whatever the device: full-outer plans
 gather edge values through the csr_spmv kernel, and the sender combine
-folds through the segment_combine kernel and then compacts the survivors
-straight into the bucket pack. Only the innermost kernel call changes
-with the device (kernels/backend.py). The exchange is the single-device
-transpose; mutations, custom combine UDFs, the collective transport and
-out-of-core collection come with later slices.
+of a named monoid folds through the segment_combine kernel; the
+combined survivors are compacted straight into the bucket pack. A custom
+combine UDF folds with the sort group-by instead (the kernel takes named
+monoids only), as the reference does. Only the innermost kernel call
+changes with the device (kernels/backend.py). The exchange is the
+single-device transpose; the collective transport and out-of-core
+collection come with later slices.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -82,13 +86,6 @@ def compact_combined(dst, payload, valid, capc: int):
 def make_superstep(program: VertexProgram, plan: PhysicalPlan,
                    ec: EngineConfig):
     plan.validate(program.combine_op)
-    if getattr(program, "mutates", False):
-        raise NotImplementedError(
-            "mutating programs (resurrect / apply_mutations) come with the "
-            "port's mutation slice")
-    if program.combine_op == "custom":
-        raise NotImplementedError(
-            "combine_op='custom' comes with the port's mutation slice")
     if ec.axis_name is not None or ec.exchange_apart:
         raise NotImplementedError(
             "axis_name / exchange_apart come with the port's multi-device "
@@ -98,6 +95,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
             "ooc_collect comes with the port's out-of-core slice")
     n_parts = ec.n_parts
     op = program.combine_op
+    named_comb = op != "custom"
     kernel_gather = plan.join == "full_outer"
 
     def _slot_of(dst, valid, Np):
@@ -110,6 +108,11 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         # run-capacity contract: msg.capacity = n_parts equal-width runs
         slot = _slot_of(msg.dst, msg.valid, Np)
         P = slot.shape[0]
+        if not named_comb:
+            # custom combine: the sort group-by, whatever the connector
+            ident = program.combine_identity().to(slot.device)
+            return groupby.sort_combine_dense(
+                slot, msg.payload, msg.valid, Np, (program.combine, ident))
         if plan.connector == "partitioning_merging":
             C = msg.capacity // n_parts
             return groupby.run_combine_dense(
@@ -121,6 +124,23 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
                                               Np, op)
         return groupby.scatter_combine_dense(slot, msg.payload, msg.valid,
                                              Np, op)
+
+    def resurrect(vert: VertexRel, has_msg):
+        """Paper Fig. 2 left-outer case: a message to a non-existent vid
+        CREATES the vertex (value 0, not halted). Slot s of partition p
+        holds vid s * n_parts + p (hash) or s + p * Np (range), so the
+        vid is recoverable from the address."""
+        P, Np = vert.vid.shape
+        dev = vert.vid.device
+        make = has_msg & (vert.vid < 0)
+        s_ids = torch.arange(Np, dtype=torch.int32, device=dev)[None, :]
+        p_ids = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        slot_vid = (s_ids + p_ids * Np if plan.partition == "range"
+                    else s_ids * n_parts + p_ids)
+        return dataclasses.replace(
+            vert, vid=torch.where(make, slot_vid, vert.vid),
+            halt=torch.where(make, False, vert.halt),
+            value=torch.where(make[..., None], 0.0, vert.value))
 
     def run_compute(vert: VertexRel, combined, has_msg, gs):
         P, Np = vert.vid.shape
@@ -196,6 +216,11 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         return edge_dst, payload, egate, ovf_edges
 
     def sender_combine(dst, payload, valid):
+        if not named_comb:
+            # a custom UDF: the sort group-by's fold (no kernel)
+            ks, folded, is_last = groupby.sort_combine(
+                dst, payload, valid, program.combine)
+            return torch.where(is_last, ks, -1), folded, is_last
         # segment_combine kernel: one blocked segmented fold over all
         # partitions' stably dst-sorted streams, each folded on its own
         key = torch.where(valid, dst, INT32_MAX)
@@ -217,6 +242,55 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         flat = lambda a: a.reshape((P, -1) + a.shape[3:])
         return flat(r_dst), flat(r_pay), flat(r_val), ovf.sum()
 
+    def apply_mutations(vert: VertexRel, value, halt, out: ComputeOut):
+        """Dataflow D6 (Figure 5): deletions before insertions, conflicts
+        via resolve. Insert proposals are routed to their owners like
+        messages (capacity ``mutation_cap``), then summed, counted and
+        max-vid'ed per slot through a sink row (the reference's dropped
+        scatters); own-edge rewrites are local to the owning partition.
+        Returns (vid, value, halt, edge_dst, edge_val, overflow)."""
+        P, Np = vert.vid.shape
+        dev = vert.vid.device
+        vid = vert.vid
+        if out.delete_self is not None:
+            vid = torch.where(out.delete_self, -1, vid)
+            halt = torch.where(out.delete_self, True, halt)
+        ovf = torch.zeros((), dtype=torch.int32, device=dev)
+        if out.insert_vid is not None:
+            ins_dst = out.insert_vid.reshape(P, -1).to(torch.int32)
+            ins_val = out.insert_value.reshape(P, Np, -1).float()
+            r_dst, r_val, r_ok, ovf = route(
+                ins_dst, ins_val, ins_dst >= 0, ec.mutation_cap, Np, False)
+            # slots past the relation go to the sink row Np, as the
+            # reference's scatters drop them
+            slot = torch.clamp_max(_slot_of(r_dst, r_ok, Np), Np).long()
+            V = r_val.shape[-1]
+            summed = torch.zeros((P, Np + 1, V), dtype=torch.float32,
+                                 device=dev)
+            summed.scatter_add_(1, slot[..., None].expand(-1, -1, V),
+                                torch.where(r_ok[..., None], r_val, 0.0))
+            cnt = torch.zeros((P, Np + 1), dtype=torch.int32, device=dev)
+            cnt.scatter_add_(1, slot, r_ok.to(torch.int32))
+            newvid = torch.full((P, Np + 1), -1, dtype=torch.int32,
+                                device=dev)
+            newvid.scatter_reduce_(1, slot, torch.where(r_ok, r_dst, -1),
+                                   "amax", include_self=True)
+            newvid, cnt = newvid[:, :Np], cnt[:, :Np]
+            resolved = program.resolve(newvid, summed[:, :Np], cnt)
+            take = cnt > 0
+            vid = torch.where(take, newvid, vid)
+            value = torch.where(take[..., None], resolved, value)
+            halt = torch.where(take, False, halt)
+        edge_dst, edge_val = vert.edge_dst, vert.edge_val
+        if out.new_edge_dst is not None:
+            edge_dst = torch.where(out.new_edge_dst >= -1,
+                                   out.new_edge_dst.to(torch.int32),
+                                   edge_dst)
+        if out.new_edge_val is not None:
+            edge_val = torch.where(torch.isnan(out.new_edge_val), edge_val,
+                                   out.new_edge_val.float())
+        return vid, value, halt, edge_dst, edge_val, ovf
+
     def superstep(vert: VertexRel, msg: MsgRel, gs: GlobalState):
         kbackend.resolve(plan.kernel_impl, vert.vid.device)
         P, Np = vert.vid.shape
@@ -224,11 +298,9 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         i32 = lambda x: x.to(torch.int32)
         # 1-2. receiver group-by + join + select (D1)
         combined, has_msg = receiver_groupby(msg, Np)
+        if program.mutates:
+            vert = resurrect(vert, has_msg)
         out, active, frontier = run_compute(vert, combined, has_msg, gs)
-        if out.mutates():
-            raise NotImplementedError(
-                "compute returned graph mutations: they come with the "
-                "port's mutation slice")
         # 3. vertex updates (D2)
         value, halt, gate, agg = apply_updates(vert, out, active, frontier)
         # 4. message generation + sender combine + exchange (D3/D7)
@@ -244,7 +316,14 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
                     dst, payload, valid, capc)
         r_dst, r_pay, r_val, ovf = route(dst, payload, valid, ec.bucket_cap,
                                          Np, presorted)
-        # 5. global state. Overflow is counted PER SOURCE (bucket /
+        # 5. mutations (D6), after the sends: gen_messages read the edges
+        # as they were, so a vertex that deletes itself still sends
+        m_ovf = torch.zeros((), dtype=torch.int32, device=dev)
+        vid, edge_dst, edge_val = vert.vid, vert.edge_dst, vert.edge_val
+        if out.has_mutations():
+            vid, value, halt, edge_dst, edge_val, m_ovf = apply_mutations(
+                vert, value, halt, out)
+        # 6. global state. Overflow is counted PER SOURCE (bucket /
         # frontier / mutation / edge) so the driver doubles only the
         # capacity that overflowed.
         msg_count = i32(r_val.sum())
@@ -252,7 +331,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         overflow = torch.stack([
             i32(ovf) + i32(ovf_pack),
             i32(frontier[2].sum()) if frontier is not None else zero,
-            zero,
+            i32(m_ovf),
             i32(ovf_edges)])
         active_count = i32(active.sum())
         if agg is not None:
@@ -261,11 +340,11 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
                 .reshape(-1, program.agg_dims).sum(0)
         else:
             agg_val = gs.aggregate
-        halt_all = (halt | (vert.vid < 0)).all()
+        halt_all = (halt | (vid < 0)).all()
         g_halt = halt_all & (msg_count == 0)
-        new_vert = VertexRel(vid=vert.vid, halt=halt, value=value,
-                             edge_src=vert.edge_src, edge_dst=vert.edge_dst,
-                             edge_val=vert.edge_val)
+        new_vert = VertexRel(vid=vid, halt=halt, value=value,
+                             edge_src=vert.edge_src, edge_dst=edge_dst,
+                             edge_val=edge_val)
         new_msg = MsgRel(dst=r_dst, payload=r_pay, valid=r_val)
         new_gs = GlobalState(
             halt=g_halt | program.is_converged(gs),

@@ -1,9 +1,11 @@
-from repro_torch.graph.algorithms import (SSSP, ConnectedComponents,
-                                          PageRank)
+from repro_torch.graph.algorithms import (BFS, SSSP, ConnectedComponents,
+                                          KCore, PageRank, PathMerge,
+                                          Reachability)
 from repro_torch.graph.generators import (DATASETS, chain_graph, graph500,
-                                          grid_graph, rmat_graph,
-                                          uniform_graph)
+                                          grid_graph, random_walk_sample,
+                                          rmat_graph, uniform_graph)
 
-__all__ = ["SSSP", "ConnectedComponents", "PageRank", "DATASETS",
-           "chain_graph", "graph500", "grid_graph", "rmat_graph",
+__all__ = ["BFS", "SSSP", "ConnectedComponents", "KCore", "PageRank",
+           "PathMerge", "Reachability", "DATASETS", "chain_graph",
+           "graph500", "grid_graph", "random_walk_sample", "rmat_graph",
            "uniform_graph"]

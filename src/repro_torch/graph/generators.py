@@ -58,6 +58,36 @@ def chain_graph(n_vertices: int) -> np.ndarray:
     return np.stack([v, v + 1], axis=1)
 
 
+def random_walk_sample(edges: np.ndarray, n_vertices: int,
+                       target_vertices: int, *, seed: int = 0,
+                       restart: float = 0.15) -> np.ndarray:
+    """Random-walk graph sampler (the paper built Webmap samples with a
+    Pregelix random-walk sampler; this is the numpy equivalent). Returns
+    the induced edge list on the visited vertex set, renumbered."""
+    rng = np.random.default_rng(seed)
+    order = np.argsort(edges[:, 0], kind="stable")
+    se = edges[order]
+    starts = np.searchsorted(se[:, 0], np.arange(n_vertices + 1))
+    visited = set()
+    cur = int(rng.integers(n_vertices))
+    visited.add(cur)
+    steps = 0
+    while len(visited) < target_vertices and steps < target_vertices * 50:
+        steps += 1
+        lo, hi = starts[cur], starts[cur + 1]
+        if hi <= lo or rng.random() < restart:
+            cur = int(rng.integers(n_vertices))
+        else:
+            cur = int(se[int(rng.integers(lo, hi)), 1])
+        visited.add(cur)
+    keep = np.fromiter((int(s) in visited and int(d) in visited
+                        for s, d in edges), bool, len(edges))
+    sub = edges[keep]
+    ids = {v: i for i, v in enumerate(sorted(visited))}
+    return np.array([[ids[int(s)], ids[int(d)]] for s, d in sub],
+                    np.int64).reshape(-1, 2)
+
+
 # named dataset registry (sizes scaled for a single host; each step ~2x)
 DATASETS = {
     "webmap-tiny": lambda: (rmat_graph(20_000, 240_000, seed=1), 20_000),

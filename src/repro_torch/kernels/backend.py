@@ -92,10 +92,6 @@ def sorted_segment_fold(keys: torch.Tensor, payload: torch.Tensor,
     already masked by valid): each partition folded on its own in tiles
     of min(512, M) rows, a ragged last tile padded with (int32 max,
     identity) as the reference's padding does. One kernel launch on CUDA
-    tensors.
-
-    is_last of a stream's last row is its valid bit. The reference pads
-    the stream itself, so there a valid last row keyed int32 max in a
-    ragged stream reads False; the engine keys no valid row int32 max."""
+    tensors."""
     return segment_combine(keys, payload, valid, op,
                            block_m=COMBINE_BLOCK_M)

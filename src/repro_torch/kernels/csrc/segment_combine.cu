@@ -54,7 +54,8 @@
 //     tile a has carry in X_a: the tile holding the step from valid to
 //     invalid publishes a, and the tail's tiles read X_a directly.
 //   - The carry is spliced into the tile's first segment in the same
-//     block, and is_last reads one id past each row.
+//     block, and is_last reads one id past each row; past a ragged
+//     stream's last row it reads the pad's int32 max.
 // The tile words live in scratch that the caller keeps for the stream:
 // one 64-bit word a tile and payload column, (epoch << 2 | status) in
 // the high half and the value in the low half, so a status and its
@@ -518,7 +519,11 @@ fold_tiles(const int* __restrict__ keys, const float* __restrict__ pay,
       for (int d = 0; d < D; ++d) x[d][m] = combine<OP>(s_carry[d], x[d][m]);
     }
     const int kn = m + 1 < ROWS ? key[m + 1 < ROWS ? m + 1 : 0] : k_after;
-    lst[m] = val[m] && (rr + m + 1 == M || key[m] != kn);
+    // a stream's last row: a ragged stream is padded to a tile multiple
+    // with int32-max keys, as the reference pads it, so a last row keyed
+    // int32 max there continues into the pad
+    lst[m] = val[m] && (rr + m + 1 == M ? (M % BM == 0 || key[m] != SEG_PAD)
+                                        : key[m] != kn);
   }
   if (vec) {
     *reinterpret_cast<float4*>(out + p * M + rr) =

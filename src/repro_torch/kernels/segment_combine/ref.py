@@ -72,7 +72,8 @@ def segment_combine_blocked(seg_ids, payload, valid, op: str = "sum", *,
     bit for bit.
 
     A ragged final tile is padded with (int32 max, identity); the in-tile
-    network is causal, so pads cannot reach real rows. The carry is
+    network is causal, so pads cannot reach real rows, and is_last is read
+    over the padded stream. The carry is
     computed for all tiles at once where a tile does not continue its
     predecessor's segment, and by a loop over only the tiles that do."""
     fn = combine_fn(op)
@@ -103,4 +104,8 @@ def segment_combine_blocked(seg_ids, payload, valid, op: str = "sum", *,
     cont = (segp == cseg[:, None]) & first
     v = torch.where(cont[..., None], fn(carry[:, None, :], v), v)
     folded = v.reshape(T * BM, D)[:M]
-    return folded, segment_lasts(seg2, valid)
+    # is_last over the padded stream: a ragged stream's last row keyed
+    # int32 max continues into the pad, as in the reference
+    validp = torch.cat([valid, torch.zeros(pad, dtype=torch.bool,
+                                           device=dev)])
+    return folded, segment_lasts(segp.reshape(-1), validp)[:M]

@@ -17,7 +17,12 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.kernels.flash_attention.ops",
            "repro_torch.kernels.moe_gmm", "repro_torch.models",
            "repro_torch.models.attention", "repro_torch.models.moe",
-           "repro_torch.launch.serve"]
+           "repro_torch.launch.serve", "repro_torch.runtime",
+           "repro_torch.runtime.checkpoint", "repro_torch.runtime.failure",
+           "repro_torch.runtime.faults", "repro_torch.storage",
+           "repro_torch.storage.spillfile", "repro_torch.core.driver",
+           "repro_torch.core.superstep", "repro_torch.core.groupby",
+           "repro_torch.graph.algorithms", "repro_torch.graph.generators"]
 
 
 def test_imports_with_jax_unimportable():

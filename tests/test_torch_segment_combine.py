@@ -115,3 +115,32 @@ def test_wrapper_takes_the_kernel_only_on_cuda():
         segment_combine_cuda(torch.from_numpy(keys)[None],
                              torch.from_numpy(pay)[None],
                              torch.from_numpy(valid)[None], "sum", 512)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("D", [1, 3])
+def test_ragged_stream_ending_in_int32_max_row(op, D):
+    """A ragged stream (M = 1000, two tiles of 512) whose last row is
+    valid and keyed int32 max: the reference pads the stream with
+    int32-max keys, so is_last there reads False. Batched (P, M) with
+    only one partition ending in such a row."""
+    M, P = 1000, 4
+    parts = [_case(M, D, kind, seed=70 + p) for p, kind in
+             enumerate(("plain", "int32max", "all_invalid", "nonfinite"))]
+    rng = np.random.default_rng(99)
+    keys = np.sort(rng.integers(0, M // 6, M)).astype(np.int32)
+    keys[-5:] = 2 ** 31 - 1                 # every row valid, last int32 max
+    pay = rng.normal(size=(M, D)).astype(np.float32)
+    parts[1] = (keys, pay, np.ones(M, bool))
+    stack = lambda i: torch.from_numpy(np.stack([c[i] for c in parts]))
+    got, last = t_backend.sorted_segment_fold(stack(0), stack(1), stack(2),
+                                              op)
+    assert got.shape == (P, M, D) and last.shape == (P, M)
+    for p, (k, y, v) in enumerate(parts):
+        want, wlast = j_backend.sorted_segment_fold(
+            jnp.asarray(k), jnp.asarray(y), jnp.asarray(v), op,
+            impl_r="ref")
+        assert np.array_equal(got[p].numpy(), np.asarray(want),
+                              equal_nan=True), p
+        assert np.array_equal(last[p].numpy(), np.asarray(wlast)), p
+    assert not bool(last[1, -1]) and bool(last[1, -6])
