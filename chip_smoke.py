@@ -95,19 +95,36 @@ and never prints its last line):
    tiny's shape, sender combine on and off, equals the CPU path. Prints
    each run's supersteps, median superstep s and launches, k, the core's
    size, the survivors and the regrow events.
-11. checkpoints and recovery: SSSP with checkpoint_every=3 and
+11. checkpoints and recovery at graph500-20 (its own graph, its own
+   uninterrupted runs and scipy references; at -22 the snapshots' zlib
+   took a quarter of the script): SSSP with checkpoint_every=3 and
    recover=True, a one-shot WorkerFailure(1) after superstep 5: one
    recovery event, the superstep-3 snapshot restored onto 3 partitions,
-   distances equal scipy's and the phase-3 run. PageRank with a snapshot
-   at superstep 10: save -> load bit-equal in every field; resumed from
-   it, ranks within rtol 1e-5 of the uninterrupted run and 1e-4 of
-   scipy. Prints the seconds of each save (savez_compressed, then its
-   CRC), each CRC check, load and repartition, with the snapshot bytes.
+   distances equal scipy's and the uninterrupted run's. PageRank with a
+   snapshot at superstep 10: save -> load bit-equal in every field;
+   resumed from it, ranks within rtol 1e-5 of the uninterrupted run and
+   1e-4 of scipy. Prints the scale and the seconds of each save
+   (savez_compressed, then its CRC), each CRC check, load and
+   repartition, with the snapshot bytes.
+12. the cost-based planner: the machine model's bandwidths measured on
+   the card (a 2 GiB device copy, pinned host<->device copies, a host
+   numpy copy) beside the committed H100_MACHINE; calibrate_machine at
+   graph500-<scale>'s statistics (seconds, fitted constants inside their
+   clamps); PageRank (15 iterations) and SSSP from vertex 0 under
+   plan="auto", held to scipy as in phase 3, with the initial plan, every
+   plan switch, supersteps, median superstep s and run s beside phase 3's
+   static medians, and the launches of the kernels the plans call for;
+   SSSP from the corner of grid_graph(1024) (1,048,576 vertices,
+   4,190,208 directed edges, diameter 2046) under plan="auto" (at least
+   one plan switch, ending left-outer) and under SSSP.suggested_plan,
+   both equal to row + col at every vertex. The counts are set to 0
+   before each run and read after it.
 
-Before its last line it prints the card's nvidia-smi line and one JSON
-line with every kernel's name, route, source, the TPU kernel it
-replaces, its launches on its main path, max abs err, kernel / plain /
-bound / library ms. The last line is {"ok": true, "device": {...}}.
+Before its last line it prints its total seconds, the card's nvidia-smi
+line and one JSON line with every kernel's name, route, source, the TPU
+kernel it replaces, its launches on its main path (and, for the graph
+kernels, on phase 12's runs), max abs err, kernel / plain / bound /
+library ms. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -125,6 +142,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()   # main() resets it: the script's total seconds
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM, NVIDIA's data sheet: HBM3 bandwidth
@@ -437,10 +455,12 @@ def run_main_path(edges, n, device, stats_out: dict):
     for name, prog, vd in (("pagerank", PageRank(n, iterations=15), 2),
                            ("sssp", SSSP(source=0), 1)):
         vert = load_graph(edges, n, P, value_dims=vd, device=device)
-        torch.cuda.synchronize()
+        sync = torch.cuda.synchronize if device == "cuda" else \
+            (lambda: None)
+        sync()
         t0 = time.perf_counter()
         res = run_host(vert, prog, prog.suggested_plan, max_supersteps=60)
-        torch.cuda.synchronize()
+        sync()
         walls = [s["wall_s"] for s in res.stats if "wall_s" in s]
         stats_out[name] = dict(
             supersteps=res.supersteps, run_s=time.perf_counter() - t0,
@@ -450,7 +470,7 @@ def run_main_path(edges, n, device, stats_out: dict):
             events=[s["event"] for s in res.stats if "event" in s])
         out[name] = gather_values(res.vertex, n)
         del vert, res
-        torch.cuda.empty_cache()
+        free(device)
     return out
 
 
@@ -700,6 +720,7 @@ def profile_phase(vert, n, out) -> dict:
 
 KCORE_K = 48     # graph500-22 made symmetric: neither empty nor whole
 CHAIN_SCALE = 22  # PathMerge's chain: 2**22 k-mer vertices
+CKPT_SCALE = 20   # phase 11's graph500 scale
 
 
 def free(device):
@@ -1077,11 +1098,13 @@ class CheckpointClock:
 
 
 def checkpoints_and_recovery(edges, n, values, pr_ref, hops, *,
-                             device="cuda") -> dict:
-    """Phase 11 at the graph path's shape: SSSP under recover=True with a
-    one-shot WorkerFailure(1) after superstep 5 (restore of the
-    superstep-3 snapshot onto 3 partitions, replay), and PageRank resumed
-    from its superstep-10 snapshot."""
+                             device="cuda", scale=None) -> dict:
+    """Phase 11 on a graph500 graph (``edges``, ``n``; ``values`` its
+    uninterrupted PageRank and SSSP runs, ``pr_ref`` and ``hops`` their
+    scipy references): SSSP under recover=True with a one-shot
+    WorkerFailure(1) after superstep 5 (restore of the superstep-3
+    snapshot onto 3 partitions, replay), and PageRank resumed from its
+    superstep-10 snapshot. ``scale`` labels the printed line."""
     from repro_torch.core import gather_values, run_host
     from repro_torch.graph import SSSP, PageRank
     from repro_torch.graph.algorithms import INF
@@ -1158,14 +1181,237 @@ def checkpoints_and_recovery(edges, n, values, pr_ref, hops, *,
         if not np.allclose(full, values["pagerank"][:, 0], rtol=1e-5,
                            atol=0):
             raise AssertionError("PageRank with checkpoints differs from "
-                                 "the phase-3 run")
+                                 "the uninterrupted run")
         out["pagerank_resume"] = dict(
             st, resumed_supersteps=res.supersteps - 10, resume_run_s=resume_s,
             max_abs_err_vs_uninterrupted=card_err)
         del res, vert
         free(device)
     out["checkpoint_io"] = clock.events
-    log(f"phase 11: {json.dumps(out)}")
+    log(f"phase 11 (graph500-{scale}): {json.dumps(out)}")
+    return out
+
+
+def graph_and_references(scale: int, device="cuda"):
+    """A graph500-``scale`` graph with its uninterrupted PageRank and SSSP
+    runs (suggested plans) held to scipy: -> (edges, n, values, scipy
+    PageRank, scipy hop counts)."""
+    from repro_torch.graph import graph500
+    edges, n = graph500(scale)
+    values = run_main_path(edges, n, device, {})
+    pr_ref, hops = check_main_path(values, edges, n)
+    return edges, n, values, pr_ref, hops
+
+
+# ------------------------------------------------------------- phase 12
+
+GRID_SIDE = 1024   # SSSP's road-network stand-in: 2**20 vertices
+COPY_ELEMS = 2 ** 29   # float32: 2 GiB a copy
+
+
+def machine_constants() -> dict:
+    """The H100 machine model's bandwidths, measured: a device-to-device
+    copy (bytes read + written over its CUDA-event time), pinned host ->
+    device and device -> host copies (bytes over time) and a host numpy
+    copy (read + written over host-clock time), 2 GiB each, beside the
+    committed H100_MACHINE. disk_bw and net_latency_s are not measured
+    (one card, no out-of-core run)."""
+    import torch
+    from repro_torch.planner import H100_MACHINE
+    a = torch.empty(COPY_ELEMS, device="cuda")
+    b = torch.empty_like(a)
+    nbytes = a.numel() * a.element_size()
+    d2d_ms = time_ms(lambda: b.copy_(a), reps=10)
+    del b
+    h = torch.empty(COPY_ELEMS, pin_memory=True)
+    h2d_ms = time_ms(lambda: a.copy_(h, non_blocking=True), reps=5)
+    d2h_ms = time_ms(lambda: h.copy_(a, non_blocking=True), reps=5)
+    del a, h
+    torch.cuda.empty_cache()
+    x = np.ones(nbytes // 8, np.float64)
+    y = np.empty_like(x)
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        np.copyto(y, x)
+        walls.append(time.perf_counter() - t)
+    del x, y
+    return dict(
+        copy_bytes=nbytes,
+        hbm_bw=2 * nbytes / (d2d_ms / 1e3),
+        host_bw_h2d=nbytes / (h2d_ms / 1e3),
+        host_bw_d2h=nbytes / (d2h_ms / 1e3),
+        host_mem_bw=2 * nbytes / statistics.median(walls),
+        committed={k: getattr(H100_MACHINE, k) for k in (
+            "peak_flops", "hbm_bw", "link_bw", "host_bw", "disk_bw",
+            "host_mem_bw", "net_bw", "net_latency_s")})
+
+
+# the fit's clamps (planner/cost.py _fit_constants)
+CLAMPS = dict(k_compute=(0.5, 128.0), k_scatter=(1.0, 64.0),
+              sort_pass_frac=(0.02, 4.0))
+
+
+def calibrate(prog, g, machine) -> dict:
+    """calibrate_machine at ``g``'s shapes, refit twice (not from the
+    cache): the seconds of each (the first pays the process's first
+    meta-tensor dispatches) and the fitted constants, inside their
+    clamps."""
+    from repro_torch.planner import calibrate_machine
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        m = calibrate_machine(prog, g, machine, refresh=True)
+        walls.append(time.perf_counter() - t)
+    out = dict(seconds=walls[0], seconds_again=walls[1])
+    for k, (lo, hi) in CLAMPS.items():
+        v = getattr(m, k)
+        if not lo <= v <= hi:
+            raise AssertionError(f"calibrated {k} = {v} outside [{lo}, "
+                                 f"{hi}]")
+        out[k] = v
+    return out
+
+
+def fmt_plan(p) -> str:
+    return (f"{p.join}/{p.groupby}/{p.connector}/"
+            f"{'combine' if p.sender_combine else 'no-combine'}")
+
+
+def planned_run(prog, edges, n, vd, device, plan="auto", max_supersteps=60,
+                calibrate_to=None, auto_config=None):
+    """One run through load_graph -> run_host(plan) on ``device``, the
+    counts set to 0 just before run_host and read just after. The plans
+    are the run's own: its initial plan (``RunResult.initial_plan``) and
+    its ``plan-switch`` events. The kernels that those plans call for
+    must have launched: the gather under a full-outer plan, the fold
+    under a sender combine of a named monoid. ``calibrate_to`` (a dict)
+    receives calibrate_machine's constants at this graph's statistics
+    first; ``auto_config`` goes to run_host."""
+    import torch
+    from repro_torch.core import load_graph, run_host
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.planner import GraphStats, machine_for
+    vert = load_graph(edges, n, P, value_dims=vd, device=device)
+    if calibrate_to is not None:
+        calibrate_to.update(calibrate(prog, GraphStats.from_vertex(
+            vert, prog), machine_for(device)))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = run_host(vert, prog, plan, max_supersteps=max_supersteps,
+                   auto_config=auto_config)
+    sync()
+    run_s = time.perf_counter() - t0
+    del vert
+    walls = [st["wall_s"] for st in res.stats if "wall_s" in st]
+    switches = [st for st in res.stats if st.get("event") == "plan-switch"]
+    first = res.initial_plan
+    plans = [first] + [dataclasses.replace(
+        first, join=sw["join"], groupby=sw["groupby"],
+        connector=sw["connector"], sender_combine=sw["sender_combine"])
+        for sw in switches]
+    st = dict(supersteps=res.supersteps, run_s=run_s,
+              superstep_median_s=statistics.median(walls),
+              initial_plan=fmt_plan(first),
+              switches=[(sw["superstep"], fmt_plan(p))
+                        for sw, p in zip(switches, plans[1:])],
+              final_plan=fmt_plan(res.plan),
+              events=[e["event"] for e in res.stats if "event" in e],
+              launches={k: c.launches for k, c in COUNTERS.items()})
+    need = []
+    if any(p.join == "full_outer" for p in plans):
+        need.append("csr_spmv")
+    if prog.combine_op != "custom" and any(p.sender_combine for p in plans):
+        need.append("segment_combine")
+    need_launches(f"{type(prog).__name__} ({st['initial_plan']})", st, need,
+                  device)
+    return res, st
+
+
+def planner_phase(edges, n, pr_ref, hops, static=None, *, device="cuda",
+                  grid_side=GRID_SIDE) -> dict:
+    """Phase 12, the cost-based planner on the graph path: the machine
+    constants measured on the card (``device="cuda"``), calibrate_machine
+    at the graph's statistics, PageRank (15 iterations) and SSSP from
+    vertex 0 under plan="auto" held to scipy as phase 3's are, and SSSP
+    from the corner of grid_graph(grid_side) under plan="auto" (at least
+    one plan switch, ending left-outer), under SSSP.suggested_plan and
+    under plan="auto" with the calibrated constants, all equal to row +
+    col. ``static`` is phase 3's stats, printed beside the auto runs."""
+    from repro_torch.core import gather_values
+    from repro_torch.graph import SSSP, PageRank, grid_graph
+    from repro_torch.graph.algorithms import INF
+    from repro_torch.planner import AdaptiveConfig, machine_for
+    out = {}
+    if device == "cuda":
+        out["machine"] = machine_constants()
+        log(f"phase 12: machine constants {json.dumps(out['machine'])}")
+    static = static or {}
+    calib = {}
+    pr = PageRank(n, iterations=15)
+    calib["pagerank"] = {}
+    res, st = planned_run(pr, edges, n, 2, device,
+                          calibrate_to=calib["pagerank"])
+    ranks = gather_values(res.vertex, n)[:, 0].astype(np.float64)
+    rel = float((np.abs(ranks - pr_ref) / np.abs(pr_ref)).max())
+    if not np.allclose(ranks, pr_ref, rtol=1e-4, atol=0):
+        raise AssertionError(f"auto PageRank off scipy: max rel err {rel}")
+    out["pagerank"] = dict(st, max_rel_err=rel, static_superstep_median_s=(
+        static.get("pagerank", {}).get("superstep_median_s")))
+    del res
+    free(device)
+    calib["sssp"] = {}
+    res, st = planned_run(SSSP(source=0), edges, n, 1, device,
+                          calibrate_to=calib["sssp"])
+    want = np.where(np.isinf(hops), np.float32(INF), hops).astype(np.float32)
+    bad = int((gather_values(res.vertex, n)[:, 0] != want).sum())
+    if bad:
+        raise AssertionError(f"auto SSSP differs from scipy at {bad} "
+                             "vertices")
+    out["sssp"] = dict(st, static_superstep_median_s=(
+        static.get("sssp", {}).get("superstep_median_s")))
+    del res
+    free(device)
+    m = machine_for(device)
+    out["calibrated"] = dict(calib, machine_kernels=m.cuda_kernels,
+                             defaults=dict(k_compute=m.k_compute,
+                                           k_scatter=m.k_scatter,
+                                           sort_pass_frac=m.sort_pass_frac))
+    log(f"phase 12: calibrated {json.dumps(out['calibrated'])}")
+    log(f"phase 12: auto PageRank {json.dumps(out['pagerank'])}")
+    log(f"phase 12: auto SSSP {json.dumps(out['sssp'])}")
+
+    # the switch at scale: SSSP from the corner of a side x side lattice
+    ge = grid_graph(grid_side)
+    gn = grid_side * grid_side
+    v = np.arange(gn)
+    closed = (v // grid_side + v % grid_side).astype(np.float32)
+    for label, plan, cfg in (
+            ("grid_auto", "auto", None),
+            ("grid_static", SSSP.suggested_plan, None),
+            # the constants that calibrate_machine fitted above (cached
+            # per device type and combine op) choosing the plans
+            ("grid_auto_calibrated", "auto",
+             AdaptiveConfig(calibrate=True))):
+        prog = SSSP(source=0)
+        res, st = planned_run(prog, ge, gn, 1, device, plan,
+                              max_supersteps=2 * grid_side + 8,
+                              auto_config=cfg)
+        dist = gather_values(res.vertex, gn)[:, 0]
+        bad = int((dist != closed).sum())
+        if bad:
+            raise AssertionError(f"{label}: SSSP differs from row + col at "
+                                 f"{bad} vertices")
+        if plan == "auto" and not (st["switches"]
+                                   and res.plan.join == "left_outer"):
+            raise AssertionError(f"{label}: no switch to left-outer "
+                                 f"({st['switches']}, {st['final_plan']})")
+        out[label] = dict(st, vertices=gn, edges=len(ge))
+        log(f"phase 12: {label} {json.dumps(out[label])}")
+        del res
+        free(device)
     return out
 
 
@@ -1781,6 +2027,8 @@ def check_launches(path: str, launches: dict, names):
 
 
 def main(argv=None) -> int:
+    global T0
+    T0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22,
                     help="graph500 scale: 2**scale vertices, 16x edges")
@@ -1818,7 +2066,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-11 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-12 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -1918,11 +2166,29 @@ def card_phases(args, name: str, child) -> int:
         + json.dumps({k: v["launches"] for k, v in phase10.items()
                       if "launches" in v}))
 
-    # 11. checkpoints and recovery
+    # 11. checkpoints and recovery, at graph500-20 (the snapshots' zlib
+    # time at -22 took a quarter of the script)
     t = time.perf_counter()
-    checkpoints_and_recovery(edges, n, values, pr_ref, hops)
+    ck_scale = min(args.scale, CKPT_SCALE)
+    checkpoints_and_recovery(*graph_and_references(ck_scale), scale=ck_scale)
     log(f"phase 11: {time.perf_counter() - t:.1f} s")
-    del edges, values
+    del values
+    torch.cuda.empty_cache()
+
+    # 12. the cost-based planner: plan="auto" at graph500-<scale> and on
+    # the lattice
+    t = time.perf_counter()
+    phase12 = planner_phase(edges, n, pr_ref, hops, stats)
+    by_path = {k: v["launches"] for k, v in phase12.items()
+               if "launches" in v}
+    for k in kernels:
+        if k["name"] in GRAPH_KERNELS:
+            k["launches_by_path"] = {p: counts[k["name"]]
+                                     for p, counts in by_path.items()}
+    log(f"phase 12: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps(by_path))
+    del edges
+    log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

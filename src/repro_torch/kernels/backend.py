@@ -3,7 +3,9 @@
 ``resolve`` checks the ``PhysicalPlan.kernel_impl`` knob (auto | ref |
 cuda) against the device of the tensors a superstep runs on: on a CUDA
 tensor "auto" and "cuda" mean the CUDA kernels and "ref" raises; on a CPU
-tensor "auto" and "ref" mean the plain torch versions and "cuda" raises.
+tensor "auto" and "ref" mean the plain torch versions and "cuda" raises;
+a ``meta`` tensor (shapes only, for the operator counter) takes the plain
+path.
 There is no fallback from one to the other and no override from the
 environment. The rest is the layer the superstep calls: the
 partition-flattened edge gather and the batched blocked segmented fold.
@@ -44,10 +46,12 @@ def resolve(impl: str, device) -> str:
             raise ValueError("kernel_impl='ref' on CUDA tensors: the plain "
                              "versions serve CPU tensors only")
         return "cuda"
-    if kind == "cpu":
+    # meta tensors hold shapes without data: the operator counter's probe
+    # supersteps (launch/op_cost.py) walk the plain path
+    if kind in ("cpu", "meta"):
         if impl == "cuda":
-            raise ValueError("kernel_impl='cuda' on CPU tensors: load the "
-                             "graph with device='cuda'")
+            raise ValueError(f"kernel_impl='cuda' on {kind} tensors: load "
+                             "the graph with device='cuda'")
         return "ref"
     raise ValueError(f"no kernels for device {device}")
 

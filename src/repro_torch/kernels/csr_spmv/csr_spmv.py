@@ -69,9 +69,9 @@ def edge_gather(values: torch.Tensor, flat_src: torch.Tensor,
                 edge_val: Optional[torch.Tensor] = None) -> torch.Tensor:
     """values: (N, V); flat_src: (E,) int32, -1 = invalid; edge_val: (E,)
     or None. -> (E, V); invalid edges read 0.0. The kernel on CUDA
-    tensors, the plain gather on CPU tensors."""
+    tensors, the plain gather on CPU (and data-less meta) tensors."""
     dev = values.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):     # meta: the operator counter's probe
         return edge_gather_ref(values, flat_src, edge_val)
     if dev.type != "cuda":
         raise ValueError(f"edge_gather: no kernel for device {dev}")

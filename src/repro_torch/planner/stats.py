@@ -1,8 +1,8 @@
 """Per-superstep statistics collection (paper Section 5.7) — the port's
-own copy of ``repro.planner.stats``'s ``SuperstepStats`` and
-``StatsCollector``, so ``run_host``'s stats records carry the same keys.
-Straggler detection and the metrics registry arrive with the
-observability slice."""
+own copy of ``repro.planner.stats``, so ``run_host``'s stats records
+carry the same keys. The collector feeds the adaptive controller
+(``planner.adaptive``) and flags stragglers among steady supersteps
+(``runtime.failure.StragglerMonitor``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -21,15 +21,20 @@ def msg_bytes(messages: int, msg_dims: int) -> int:
 
 @dataclass
 class SuperstepStats:
-    """One superstep (or one driver event: regrow / frontier-refit) of a
-    run. Event records carry ``event`` + ``extra`` only."""
+    """One superstep (or one driver event: regrow / frontier-refit /
+    plan-switch / recalibrate) of a run. Event records carry ``event`` +
+    ``extra`` only."""
     superstep: int
     active: int = 0
     messages: int = 0
     frontier_density: float = 0.0   # active / LIVE vertices (not slots)
     bytes_exchanged: int = 0        # live message bytes, all partitions
     wall_s: float = 0.0
-    recompiled: bool = False        # kept for key parity with the reference
+    # the superstep ran on a newly built superstep (the first one, and
+    # after a regrow, a frontier refit or a plan switch): where the
+    # reference recompiles, so straggler flags and the controller's
+    # windows skip the same supersteps
+    recompiled: bool = False
     event: Optional[str] = None
     extra: dict = field(default_factory=dict)
 
@@ -48,17 +53,21 @@ class SuperstepStats:
 
 
 class StatsCollector:
-    """Builds ``SuperstepStats`` records from driver observables."""
+    """Builds ``SuperstepStats`` records from driver observables and keeps
+    the run history the adaptive controller windows over."""
 
     def __init__(self, *, n_partitions: int, vertex_capacity: int,
                  msg_dims: int, n_vertices: Optional[int] = None):
-        """n_vertices = LIVE vertex count; densities are fractions of it.
-        Falls back to total slots when unknown."""
+        """n_vertices = LIVE vertex count; densities are fractions of it
+        (slot capacities carry slack). Falls back to total slots when
+        unknown."""
         self.n_partitions = n_partitions
         self.vertex_capacity = vertex_capacity
         self.msg_dims = msg_dims
         self.n_vertices = n_vertices
         self.records: List[SuperstepStats] = []
+        from repro_torch.runtime.failure import StragglerMonitor
+        self.stragglers = StragglerMonitor()
 
     @property
     def total_vertices(self) -> int:
@@ -69,6 +78,12 @@ class StatsCollector:
     def record(self, superstep: int, *, active: int, messages: int,
                wall_s: float, recompiled: bool = False,
                **extra) -> SuperstepStats:
+        if not recompiled:
+            # straggler detection sees only steady supersteps: a rebuilt
+            # superstep is not the partition's fault
+            flag = self.stragglers.observe(superstep, wall_s)
+            if flag is not None:
+                extra["straggler"] = flag
         rec = SuperstepStats(
             superstep=superstep, active=active, messages=messages,
             frontier_density=min(active / self.total_vertices, 1.0),

@@ -1,5 +1,5 @@
-"""chip_smoke.py's phases 10 (mutations and the library programs) and 11
-(checkpoints and recovery), rehearsed on the CPU at a small graph500
+"""chip_smoke.py's phases 10 (mutations and the library programs), 11
+(checkpoints and recovery) and 12 (the planner), rehearsed on the CPU at a small graph500
 scale through the port's plain path: the same runs and the same checks
 against scipy and closed forms as on the card, so a fault in the
 phases' own logic shows here and not first on the card."""
@@ -37,3 +37,25 @@ def test_phases_10_and_11_on_the_cpu():
     kinds = [e["what"] for e in p11["checkpoint_io"]]
     assert kinds.count("savez_compressed") >= 2 and "repartition" in kinds
     assert np.isfinite(p11["pagerank_resume"]["max_abs_err_vs_uninterrupted"])
+
+
+def test_phase_12_on_the_cpu():
+    """Phase 12 (plan="auto") on the CPU: graph500-10 with its scipy
+    references from graph_and_references (phase 11's set-up), and the
+    lattice at side 32 instead of 1024 — the planner prices the CPU
+    machine here, so the plans are the reference's CPU choices."""
+    edges, n, values, pr_ref, hops = cs.graph_and_references(SCALE, "cpu")
+    out = cs.planner_phase(edges, n, pr_ref, hops, device="cpu",
+                           grid_side=32)
+    assert "machine" not in out          # measured on the card only
+    for prog in ("pagerank", "sssp"):
+        c = out["calibrated"][prog]
+        for k, (lo, hi) in cs.CLAMPS.items():
+            assert lo <= c[k] <= hi
+    grid = out["grid_auto"]
+    assert grid["switches"] and grid["final_plan"].startswith("left_outer")
+    assert grid["supersteps"] == out["grid_static"]["supersteps"]
+    assert out["grid_static"]["initial_plan"] == \
+        out["grid_static"]["final_plan"]
+    assert out["grid_auto_calibrated"]["supersteps"] == grid["supersteps"]
+    assert out["sssp"]["supersteps"] >= 1 and out["pagerank"]["supersteps"]

@@ -130,8 +130,8 @@ def test_raw_kernel_wrapper_refuses_cpu_tensors():
 def test_wrapper_off_the_cpu_needs_the_layout():
     """The gather takes no layout any more: edge_gather(values, flat_src,
     edge_val) and edge_gather_values(values, edge_src) refuse one. Off
-    the CPU the gather is the kernel, so a device without one raises
-    instead of falling back to a plain gather."""
+    the CPU the gather is the kernel; ``meta`` tensors hold no data and
+    take the plain gather's shapes (the operator counter's probe)."""
     values = torch.zeros((4, 1), device="meta")
     src = torch.zeros(4, dtype=torch.int32, device="meta")
     layout = (torch.zeros(512, dtype=torch.int32),
@@ -140,10 +140,10 @@ def test_wrapper_off_the_cpu_needs_the_layout():
         edge_gather(values, src, None, layout)
     with pytest.raises(TypeError):
         t_backend.edge_gather_values(values[None], src[None], layout)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        edge_gather(values, src, None)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        t_backend.edge_gather_values(values[None], src[None])
+    out = edge_gather(values, src, None)
+    assert out.device.type == "meta" and out.shape == (4, 1)
+    out = t_backend.edge_gather_values(values[None], src[None])
+    assert out.device.type == "meta" and out.shape == (1, 4, 1)
 
 
 def test_resolve_is_device_based():
@@ -157,3 +157,17 @@ def test_resolve_is_device_based():
         t_backend.resolve("ref", "cuda")
     with pytest.raises(ValueError):
         t_backend.resolve("pallas", "cpu")
+
+
+def test_resolve_has_no_fallback_off_cpu_and_cuda():
+    """meta tensors (the operator counter's probe) take the plain path
+    and refuse the kernel knob as CPU tensors do; any other device has no
+    kernels and no plain fallback."""
+    assert t_backend.resolve("auto", "meta") == "ref"
+    assert t_backend.resolve("ref", "meta") == "ref"
+    with pytest.raises(ValueError, match="kernel_impl='cuda' on meta"):
+        t_backend.resolve("cuda", "meta")
+    for dev in ("xpu", "mps"):
+        for impl in ("auto", "ref", "cuda"):
+            with pytest.raises(ValueError, match="no kernels for device"):
+                t_backend.resolve(impl, dev)

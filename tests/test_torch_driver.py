@@ -138,7 +138,13 @@ def test_entry_points_refuse_later_slices():
     # checkpoints came with slice 5: a missing snapshot is a missing file
     with pytest.raises(FileNotFoundError):
         T.run_host(vert, mk_t(), T.SPARSE_PLAN, resume_from="x")
+    # plan="auto" is the planner's; any other string is no plan
+    with pytest.raises(ValueError):
+        T.run_host(vert, mk_t(), "fastest")
+    with pytest.raises(ValueError):
+        T.run_jit(vert, mk_t(), "fastest")
+    # the multi-device transport is a later slice
     with pytest.raises(NotImplementedError):
-        T.run_host(vert, mk_t(), "auto")
-    with pytest.raises(NotImplementedError):
-        T.run_jit(vert, mk_t(), "auto")
+        T.run_host(vert, mk_t(), T.SPARSE_PLAN,
+                   ec=T.EngineConfig(n_parts=4, bucket_cap=64,
+                                     axis_name=("x",)))

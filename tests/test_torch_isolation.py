@@ -22,7 +22,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.runtime.faults", "repro_torch.storage",
            "repro_torch.storage.spillfile", "repro_torch.core.driver",
            "repro_torch.core.superstep", "repro_torch.core.groupby",
-           "repro_torch.graph.algorithms", "repro_torch.graph.generators"]
+           "repro_torch.graph.algorithms", "repro_torch.graph.generators",
+           "repro_torch.planner.cost", "repro_torch.planner.optimizer",
+           "repro_torch.planner.adaptive", "repro_torch.planner.stats",
+           "repro_torch.launch.op_cost"]
 
 
 def test_imports_with_jax_unimportable():
