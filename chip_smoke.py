@@ -119,11 +119,29 @@ and never prints its last line):
    one plan switch, ending left-outer) and under SSSP.suggested_plan,
    both equal to row + col at every vertex. The counts are set to 0
    before each run and read after it.
+13. out-of-core: repro_torch.core.ooc.run_out_of_core with the graph
+   loaded on the host (P = 8) and 2 partitions on the card at a time
+   (four super-partitions). At graph500-<scale>, the pure-DRAM tier,
+   streamed and barrier-free: PageRank (15 iterations, full-outer)
+   within rtol 1e-4 of phase 3's scipy power iteration and 1e-5 of
+   phase 3's run_host ranks, fold and gather launched; SSSP from vertex
+   0 equal to scipy's hop counts, the fold launched; the peak of
+   max_memory_allocated beside one super-partition's vertex block. At
+   graph500-20 (phase 11's graph): PageRank streamed with a checkpoint
+   at superstep 10; synchronous, on the disk tier (a third of the
+   streamed run's peak pager bytes, mru, one I/O thread) and resumed
+   from the checkpoint, each within rtol 1e-5 of the streamed run (bit
+   equality printed); SSSP under plan="auto" equal to scipy, with its
+   plans. Prints each run's supersteps, median superstep s, run s,
+   median readiness stall, dispatch / collect-wait / commit seconds and
+   launches, the disk tier's hit rate and spill bytes, and the device
+   busy share of one streamed superstep (torch.profiler). The counts
+   are set to 0 before each run and read after it.
 
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
-kernels, on phase 12's runs), max abs err, kernel / plain / bound /
+kernels, on phase 12's and phase 13's runs), max abs err, kernel / plain / bound /
 library ms. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1415,6 +1433,238 @@ def planner_phase(edges, n, pr_ref, hops, static=None, *, device="cuda",
     return out
 
 
+# ------------------------------------------------------------- phase 13
+
+OOC_P = 8           # partitions of the out-of-core runs
+OOC_BUDGET = 2      # partitions on the card at a time: 4 super-partitions
+
+
+def ooc_block_bytes(vert, sp: int) -> int:
+    """Bytes of one super-partition's vertex block (its six relation
+    slices), the least a pipeline slot holds on the card."""
+    per = sum(getattr(vert, f).element_size() * getattr(vert, f).numel()
+              for f in ("vid", "halt", "value", "edge_src", "edge_dst",
+                        "edge_val"))
+    return per * sp // vert.num_partitions
+
+
+def ooc_run(prog, vert, device, plan=None, **kw):
+    """One run_out_of_core of ``prog`` over the CPU-resident ``vert``
+    (OOC_BUDGET partitions a super-partition), with the counts set to 0
+    just before it and read just after. -> (RunResult, stats dict):
+    supersteps, run s, median superstep s, the median readiness stall,
+    the dispatch / collect-wait / commit seconds summed over the run,
+    the plans (initial, switches, final) and the launches."""
+    import torch
+    from repro_torch.core.ooc import run_out_of_core
+    from repro_torch.kernels import COUNTERS
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = run_out_of_core(vert, prog, plan or prog.suggested_plan,
+                          budget_partitions=OOC_BUDGET, device=device,
+                          max_supersteps=kw.pop("max_supersteps", 100),
+                          **kw)
+    sync()
+    run_s = time.perf_counter() - t0
+    recs = [s for s in res.stats if "wall_s" in s]
+    st = dict(supersteps=res.supersteps, run_s=run_s,
+              superstep_median_s=statistics.median(
+                  [s["wall_s"] for s in recs]),
+              readiness_stall_median_s=statistics.median(
+                  [s["readiness_stall_s"] for s in recs]),
+              split_s={k: sum(s[k + "_s"] for s in recs)
+                       for k in ("dispatch", "collect_wait", "commit")},
+              initial_plan=fmt_plan(res.initial_plan),
+              switches=[(s["superstep"], s["join"], s["connector"],
+                         s["sender_combine"], s["storage"])
+                        for s in res.stats
+                        if s.get("event") == "plan-switch"],
+              final_plan=fmt_plan(res.plan) + "/" + res.plan.storage,
+              events=[s["event"] for s in res.stats if "event" in s],
+              launches={k: c.launches for k, c in COUNTERS.items()})
+    return res, st
+
+
+def rel_close(got, want, rtol: float, what: str) -> float:
+    """Max relative error of ``got`` against ``want``; raises past
+    ``rtol``."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    if not np.allclose(got, want, rtol=rtol, atol=0):
+        raise AssertionError(f"{what}: max rel err {rel} > {rtol}")
+    return rel
+
+
+def superstep_busy(prog, vert, device) -> dict:
+    """Device time of one streamed superstep (the third, profiled from
+    the on_superstep hook after the second to the hook after the third):
+    kernel and copy time by torch.profiler, over the host wall time. The
+    shares are sums over a stream each, so copies that overlap kernels
+    count in both."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    box = {}
+
+    def hook(i, rec):
+        if i == 2:
+            torch.cuda.synchronize()
+            # device activity only: host-op recording would slow the
+            # host-bound superstep it measures
+            box["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            box["prof"].__enter__()
+            box["t"] = time.perf_counter()
+        elif i == 3:
+            torch.cuda.synchronize()
+            box["wall_ms"] = (time.perf_counter() - box["t"]) * 1e3
+            box["prof"].__exit__(None, None, None)
+
+    ooc_run(prog, vert, device, max_supersteps=3, on_superstep=hook)
+    ev = [e for e in box["prof"].key_averages()
+          if _device_ms(e) > 0 and e.device_type.name == "CUDA"]
+    copies = sum(_device_ms(e) for e in ev if "Memcpy" in e.key)
+    kernels = sum(_device_ms(e) for e in ev if "Memcpy" not in e.key)
+    top = sorted(ev, key=_device_ms, reverse=True)[:6]
+    return dict(wall_ms=box["wall_ms"], kernel_busy_ms=kernels,
+                copy_busy_ms=copies,
+                kernel_busy_share=kernels / box["wall_ms"],
+                copy_busy_share=copies / box["wall_ms"],
+                top=[(e.key[:50], round(_device_ms(e), 3)) for e in top])
+
+
+def out_of_core_phase(big, small, *, device="cuda") -> dict:
+    """Phase 13: run_out_of_core with the graph on the host and
+    OOC_BUDGET of OOC_P partitions on the card at a time. ``big`` and
+    ``small`` are graph_and_references tuples (edges, n, run_host values,
+    scipy PageRank, scipy hops): phase 3's graph and phase 11's.
+    On ``big``, pure-DRAM tier, streamed and barrier-free: PageRank (15
+    iterations) within rtol 1e-4 of scipy and 1e-5 of run_host, both
+    graph kernels launched; SSSP from vertex 0 equal to scipy, the fold
+    launched; the peak of max_memory_allocated beside one
+    super-partition's vertex block. On ``small``: PageRank synchronous
+    beside streamed with a checkpoint at superstep 10, the disk tier
+    (a budget of a third of the DRAM run's peak pager bytes, mru, one I/O
+    thread) and the resume from the checkpoint, each within rtol 1e-5 of
+    the streamed run (bit equality reported: the card's scatter-adds
+    need not add in one order); SSSP under plan="auto" equal to scipy;
+    and the device busy share of one streamed superstep."""
+    import torch
+    from repro_torch.core import gather_values, load_graph
+    from repro_torch.graph import SSSP, PageRank
+    from repro_torch.graph.algorithms import INF
+    cuda = device == "cuda"
+    out = {}
+
+    def need(what, st, names):
+        need_launches(what, st, names, device)
+
+    def hops_equal(res, n, hops, what):
+        want = np.where(np.isinf(hops), np.float32(INF), hops) \
+            .astype(np.float32)
+        bad = int((gather_values(res.vertex, n)[:, 0] != want).sum())
+        if bad:
+            raise AssertionError(f"{what}: differs from scipy at {bad} "
+                                 "vertices")
+
+    # -- the big graph: pure-DRAM tier, streamed, barrier-free
+    edges, n, values, pr_ref, hops = big
+    t = time.perf_counter()
+    vert = load_graph(edges, n, OOC_P, value_dims=2, device="cpu")
+    load_s = time.perf_counter() - t
+    block = ooc_block_bytes(vert, OOC_BUDGET)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res, st = ooc_run(PageRank(n, iterations=15), vert, device)
+    ranks = gather_values(res.vertex, n)[:, 0]
+    st["max_rel_err_scipy"] = rel_close(ranks, pr_ref, 1e-4,
+                                        "ooc PageRank vs scipy")
+    st["max_rel_err_run_host"] = rel_close(
+        ranks, values["pagerank"][:, 0], 1e-5, "ooc PageRank vs run_host")
+    if cuda:
+        st["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        st["block_bytes"] = block
+        st["peak_over_block"] = st["peak_allocated_bytes"] / block
+    need("out-of-core PageRank", st, GRAPH_KERNELS)
+    out["pagerank_big"] = dict(st, vertices=n, edges=len(edges),
+                               partitions=OOC_P, load_s=load_s)
+    log(f"phase 13: PageRank {json.dumps(out['pagerank_big'])}")
+    del res
+    vert = dataclasses.replace(vert, value=vert.value[..., :1].clone())
+    res, st = ooc_run(SSSP(source=0), vert, device)
+    hops_equal(res, n, hops, "ooc SSSP")
+    need("out-of-core SSSP", st, ("segment_combine",))
+    out["sssp_big"] = st
+    log(f"phase 13: SSSP {json.dumps(st)}")
+    del res, vert
+    free(device)
+
+    # -- the small graph: sync vs streamed, disk tier, checkpoint, auto
+    edges, n, values, pr_ref, hops = small
+    vert = load_graph(edges, n, OOC_P, value_dims=2, device="cpu")
+    pr = PageRank(n, iterations=15)
+    with tempfile.TemporaryDirectory() as d:
+        ck = Path(d) / "ckpt"
+        res, st = ooc_run(pr, vert, device, checkpoint_every=10,
+                          checkpoint_dir=str(ck))
+        streamed = gather_values(res.vertex, n)[:, 0]
+        peak_pager = max(s["pager_peak_bytes"] for s in res.stats
+                         if "pager_peak_bytes" in s)
+        st["max_rel_err_run_host"] = rel_close(
+            streamed, values["pagerank"][:, 0], 1e-5,
+            "streamed PageRank vs run_host")
+        need("out-of-core PageRank (small)", st, GRAPH_KERNELS)
+        out["pagerank_streamed"] = dict(st, pager_peak_bytes=peak_pager)
+        del res
+
+        def against_streamed(label, res, st):
+            got = gather_values(res.vertex, n)[:, 0]
+            st["max_rel_err_streamed"] = rel_close(
+                got, streamed, 1e-5, f"{label} vs the streamed run")
+            st["bit_equal_streamed"] = bool(np.array_equal(got, streamed))
+            out[label] = st
+
+        res, st = ooc_run(pr, vert, device, stream=False)
+        against_streamed("pagerank_sync", res, st)
+        del res
+        budget = peak_pager // 3
+        res, st = ooc_run(pr, vert, device, memory_budget_bytes=budget,
+                          disk_dir=str(Path(d) / "spill"), eviction="mru",
+                          io_threads=1)
+        recs = [s for s in res.stats if "wall_s" in s]
+        st.update(budget_bytes=budget,
+                  cache_hit_rate_median=statistics.median(
+                      [s["cache_hit_rate"] for s in recs]),
+                  spill_read_bytes=sum(s["spill_read_bytes"] for s in recs),
+                  spill_write_bytes=sum(s["spill_write_bytes"]
+                                        for s in recs))
+        if not st["spill_write_bytes"]:
+            raise AssertionError("the disk tier never spilled")
+        against_streamed("pagerank_disk", res, st)
+        del res
+        res, st = ooc_run(pr, None, device,
+                          resume_from=str(ck / "ooc_000010"))
+        st["resumed_supersteps"] = res.supersteps - 10
+        against_streamed("pagerank_resumed", res, st)
+        del res
+    res, st = ooc_run(SSSP(source=0), dataclasses.replace(
+        vert, value=vert.value[..., :1].clone()), device, plan="auto")
+    hops_equal(res, n, hops, "ooc auto SSSP")
+    out["sssp_auto"] = st
+    del res
+    if cuda:
+        out["busy"] = superstep_busy(pr, vert, device)
+    del vert
+    free(device)
+    for label in ("pagerank_streamed", "pagerank_sync", "pagerank_disk",
+                  "pagerank_resumed", "sssp_auto", "busy"):
+        if label in out:
+            log(f"phase 13: {label} {json.dumps(out[label])}")
+    return out
+
+
 # ------------------------------------------------------------- serving
 
 def close_in_dtype(got, want, what: str) -> float:
@@ -2066,7 +2316,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-12 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-13 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -2170,9 +2420,9 @@ def card_phases(args, name: str, child) -> int:
     # time at -22 took a quarter of the script)
     t = time.perf_counter()
     ck_scale = min(args.scale, CKPT_SCALE)
-    checkpoints_and_recovery(*graph_and_references(ck_scale), scale=ck_scale)
+    small = graph_and_references(ck_scale)
+    checkpoints_and_recovery(*small, scale=ck_scale)
     log(f"phase 11: {time.perf_counter() - t:.1f} s")
-    del values
     torch.cuda.empty_cache()
 
     # 12. the cost-based planner: plan="auto" at graph500-<scale> and on
@@ -2181,13 +2431,22 @@ def card_phases(args, name: str, child) -> int:
     phase12 = planner_phase(edges, n, pr_ref, hops, stats)
     by_path = {k: v["launches"] for k, v in phase12.items()
                if "launches" in v}
+    log(f"phase 12: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps(by_path))
+
+    # 13. out-of-core: the graph on the host, a quarter of it on the card
+    t = time.perf_counter()
+    phase13 = out_of_core_phase((edges, n, values, pr_ref, hops), small)
+    ooc_paths = {f"ooc_{k}": v["launches"] for k, v in phase13.items()
+                 if "launches" in v}
+    log(f"phase 13: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps(ooc_paths))
+    by_path.update(ooc_paths)
     for k in kernels:
         if k["name"] in GRAPH_KERNELS:
             k["launches_by_path"] = {p: counts[k["name"]]
                                      for p, counts in by_path.items()}
-    log(f"phase 12: {time.perf_counter() - t:.1f} s; launches by path: "
-        + json.dumps(by_path))
-    del edges
+    del edges, values, small
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

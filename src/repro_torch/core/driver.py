@@ -57,15 +57,16 @@ class RunResult:
 
 def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
                   kernel_impl: Optional[str] = None, auto_config=None,
-                  auto_space=None):
+                  auto_space=None, graph_stats=None, device=None):
     """-> (plan, AdaptiveController | None). A PhysicalPlan passes
     through (with ``kernel_impl`` applied); plan="auto" is chosen by the
-    cost model for superstep 0, with the machine model of the graph's
-    device, and, when ``adaptive``, comes with the controller that
-    re-chooses mid-run. A ``kernel_impl`` override rides on the base
-    plan, so the initial choice and every switch carry it.
-    ``AdaptiveConfig(calibrate=True)`` refits the model's constants
-    first."""
+    cost model for superstep 0, with the machine model of ``device``
+    (default: the graph's device), and, when ``adaptive``, comes with the
+    controller that re-chooses mid-run. A ``kernel_impl`` override rides
+    on the base plan, so the initial choice and every switch carry it.
+    ``graph_stats`` stands in for the vertex scan (the out-of-core resume
+    holds no VertexRel). ``AdaptiveConfig(calibrate=True)`` refits the
+    model's constants first."""
     if isinstance(plan, PhysicalPlan):
         if kernel_impl is not None:
             plan = dataclasses.replace(plan, kernel_impl=kernel_impl)
@@ -77,8 +78,8 @@ def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
                                      calibrate_machine, machine_for,
                                      resolve_auto_plan)
     config = auto_config or AdaptiveConfig()
-    machine = machine_for(vert.vid.device)
-    g = GraphStats.from_vertex(vert, program)
+    machine = machine_for(vert.vid.device if device is None else device)
+    g = graph_stats or GraphStats.from_vertex(vert, program)
     if config.calibrate:
         machine = calibrate_machine(program, g, machine)
     base = (dataclasses.replace(DEFAULT_PLAN, kernel_impl=kernel_impl)

@@ -15,8 +15,11 @@ combined survivors are compacted straight into the bucket pack. A custom
 combine UDF folds with the sort group-by instead (the kernel takes named
 monoids only), as the reference does. Only the innermost kernel call
 changes with the device (kernels/backend.py). The exchange is the
-single-device transpose; the collective transport and out-of-core
-collection come with later slices.
+single-device transpose. Under ``EngineConfig.ooc_collect`` (the
+out-of-core driver, ``core/ooc.py``) the superstep runs over one
+super-partition's block of partitions and hands the pre-exchange
+buckets back instead of exchanging them; the collective transport comes
+with a later slice.
 """
 from __future__ import annotations
 
@@ -42,7 +45,10 @@ class EngineConfig:
     mutation_cap: int = 64       # insert-proposal bucket capacity
     frontier_cap: int = 0        # left-outer frontier capacity (0 = Np/2)
     axis_name: Optional[tuple] = None   # multi-device slice
-    ooc_collect: bool = False           # out-of-core slice
+    # out-of-core: return the (sp, n_parts, C) sender buckets to the host
+    # instead of exchanging them; the out-of-core driver performs the
+    # exchange as a host-side transpose into its run-structured inbox
+    ooc_collect: bool = False
     exchange_apart: bool = False        # multi-device slice
 
 
@@ -90,9 +96,6 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         raise NotImplementedError(
             "axis_name / exchange_apart come with the port's multi-device "
             "slice")
-    if ec.ooc_collect:
-        raise NotImplementedError(
-            "ooc_collect comes with the port's out-of-core slice")
     n_parts = ec.n_parts
     op = program.combine_op
     named_comb = op != "custom"
@@ -125,16 +128,20 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         return groupby.scatter_combine_dense(slot, msg.payload, msg.valid,
                                              Np, op)
 
-    def resurrect(vert: VertexRel, has_msg):
+    def resurrect(vert: VertexRel, has_msg, part0):
         """Paper Fig. 2 left-outer case: a message to a non-existent vid
         CREATES the vertex (value 0, not halted). Slot s of partition p
         holds vid s * n_parts + p (hash) or s + p * Np (range), so the
-        vid is recoverable from the address."""
+        vid is recoverable from the address. ``part0`` (out-of-core) is
+        the global index of the block's first partition: the resident
+        rows are partitions part0 .. part0 + P - 1, not 0 .. P - 1."""
         P, Np = vert.vid.shape
         dev = vert.vid.device
         make = has_msg & (vert.vid < 0)
         s_ids = torch.arange(Np, dtype=torch.int32, device=dev)[None, :]
         p_ids = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        if part0:
+            p_ids = p_ids + part0
         slot_vid = (s_ids + p_ids * Np if plan.partition == "range"
                     else s_ids * n_parts + p_ids)
         return dataclasses.replace(
@@ -231,11 +238,13 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         folded, is_last = kbackend.sorted_segment_fold(ks, ps, vs, op)
         return torch.where(is_last, ks, -1), folded, is_last
 
-    def route(dst, payload, valid, cap, Np, presorted):
+    def route(dst, payload, valid, cap, Np, presorted, collect=False):
         b_dst, b_pay, b_val, ovf = connector.bucket_by_owner(
             dst, payload, valid, n_parts, cap,
             sort_by_dst=(plan.connector == "partitioning_merging"),
             partition=plan.partition, capacity=Np, presorted=presorted)
+        if collect:   # out-of-core: the buckets go back to the host
+            return b_dst, b_pay, b_val, ovf.sum()
         r_dst, r_pay, r_val = connector.exchange_emulated(b_dst, b_pay,
                                                           b_val)
         P = dst.shape[0]
@@ -248,7 +257,12 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         messages (capacity ``mutation_cap``), then summed, counted and
         max-vid'ed per slot through a sink row (the reference's dropped
         scatters); own-edge rewrites are local to the owning partition.
-        Returns (vid, value, halt, edge_dst, edge_val, overflow)."""
+        Out of core (``ec.ooc_collect``) the proposals are bucketed by
+        owner over all n_parts partitions and handed back instead: the
+        resident block spans one super-partition, so an insert into
+        another one travels through the driver's host mutation inbox.
+        Returns (vid, value, halt, edge_dst, edge_val, overflow,
+        mutation buckets or None)."""
         P, Np = vert.vid.shape
         dev = vert.vid.device
         vid = vert.vid
@@ -256,7 +270,15 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
             vid = torch.where(out.delete_self, -1, vid)
             halt = torch.where(out.delete_self, True, halt)
         ovf = torch.zeros((), dtype=torch.int32, device=dev)
-        if out.insert_vid is not None:
+        mut_buckets = None
+        if out.insert_vid is not None and ec.ooc_collect:
+            ins_dst = out.insert_vid.reshape(P, -1).to(torch.int32)
+            ins_val = out.insert_value.reshape(P, Np, -1).float()
+            mb_dst, mb_val, mb_ok, ovf = route(
+                ins_dst, ins_val, ins_dst >= 0, ec.mutation_cap, Np, False,
+                collect=True)
+            mut_buckets = (mb_dst, mb_val, mb_ok)
+        elif out.insert_vid is not None:
             ins_dst = out.insert_vid.reshape(P, -1).to(torch.int32)
             ins_val = out.insert_value.reshape(P, Np, -1).float()
             r_dst, r_val, r_ok, ovf = route(
@@ -289,9 +311,16 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         if out.new_edge_val is not None:
             edge_val = torch.where(torch.isnan(out.new_edge_val), edge_val,
                                    out.new_edge_val.float())
-        return vid, value, halt, edge_dst, edge_val, ovf
+        return vid, value, halt, edge_dst, edge_val, ovf, mut_buckets
 
-    def superstep(vert: VertexRel, msg: MsgRel, gs: GlobalState):
+    def superstep(vert: VertexRel, msg: MsgRel, gs: GlobalState,
+                  part0: Optional[int] = None):
+        """``part0`` (out-of-core only): the global index of the block's
+        first partition, so resurrect mints correct vids past the first
+        super-partition. Under ``ec.ooc_collect`` the message output
+        carries the PRE-EXCHANGE (P, n_parts, C) buckets, and the step
+        also returns the per-(src, dst) occupancy counts (P, n_parts)
+        and the insert-proposal buckets (or None)."""
         kbackend.resolve(plan.kernel_impl, vert.vid.device)
         P, Np = vert.vid.shape
         dev = vert.vid.device
@@ -299,7 +328,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         # 1-2. receiver group-by + join + select (D1)
         combined, has_msg = receiver_groupby(msg, Np)
         if program.mutates:
-            vert = resurrect(vert, has_msg)
+            vert = resurrect(vert, has_msg, part0)
         out, active, frontier = run_compute(vert, combined, has_msg, gs)
         # 3. vertex updates (D2)
         value, halt, gate, agg = apply_updates(vert, out, active, frontier)
@@ -315,14 +344,16 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
                 dst, payload, valid, ovf_pack = compact_combined(
                     dst, payload, valid, capc)
         r_dst, r_pay, r_val, ovf = route(dst, payload, valid, ec.bucket_cap,
-                                         Np, presorted)
+                                         Np, presorted,
+                                         collect=ec.ooc_collect)
         # 5. mutations (D6), after the sends: gen_messages read the edges
         # as they were, so a vertex that deletes itself still sends
         m_ovf = torch.zeros((), dtype=torch.int32, device=dev)
+        mut_buckets = None
         vid, edge_dst, edge_val = vert.vid, vert.edge_dst, vert.edge_val
         if out.has_mutations():
-            vid, value, halt, edge_dst, edge_val, m_ovf = apply_mutations(
-                vert, value, halt, out)
+            (vid, value, halt, edge_dst, edge_val, m_ovf,
+             mut_buckets) = apply_mutations(vert, value, halt, out)
         # 6. global state. Overflow is counted PER SOURCE (bucket /
         # frontier / mutation / edge) so the driver doubles only the
         # capacity that overflowed.
@@ -354,6 +385,11 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
             overflow=gs.overflow + overflow,
             active_count=active_count,
             msg_count=msg_count)
+        if ec.ooc_collect:
+            # per-(src, dst) bucket occupancy, counted on the device so
+            # the host never scans the buckets for the run-width trim
+            counts = r_val.sum(dim=2, dtype=torch.int32)
+            return new_vert, new_msg, new_gs, counts, mut_buckets
         return new_vert, new_msg, new_gs
 
     return superstep

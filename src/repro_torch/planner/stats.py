@@ -57,14 +57,18 @@ class StatsCollector:
     the run history the adaptive controller windows over."""
 
     def __init__(self, *, n_partitions: int, vertex_capacity: int,
-                 msg_dims: int, n_vertices: Optional[int] = None):
+                 msg_dims: int, n_vertices: Optional[int] = None,
+                 metrics=None):
         """n_vertices = LIVE vertex count; densities are fractions of it
         (slot capacities carry slack). Falls back to total slots when
-        unknown."""
+        unknown. ``metrics`` (a ``repro_torch.obs.metrics.MetricsRegistry``,
+        the out-of-core driver's): every ``record`` merges its
+        per-superstep interval snapshot into ``extra["metrics"]``."""
         self.n_partitions = n_partitions
         self.vertex_capacity = vertex_capacity
         self.msg_dims = msg_dims
         self.n_vertices = n_vertices
+        self.metrics = metrics
         self.records: List[SuperstepStats] = []
         from repro_torch.runtime.failure import StragglerMonitor
         self.stragglers = StragglerMonitor()
@@ -78,6 +82,10 @@ class StatsCollector:
     def record(self, superstep: int, *, active: int, messages: int,
                wall_s: float, recompiled: bool = False,
                **extra) -> SuperstepStats:
+        if self.metrics is not None:
+            m = self.metrics.interval()
+            if m:
+                extra["metrics"] = m
         if not recompiled:
             # straggler detection sees only steady supersteps: a rebuilt
             # superstep is not the partition's fault

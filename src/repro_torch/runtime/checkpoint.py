@@ -1,5 +1,5 @@
-"""Checkpointing and elastic recovery (paper Section 5.5): the npz half of
-``repro.runtime.checkpoint``.
+"""Checkpointing and elastic recovery (paper Section 5.5): the port's copy
+of ``repro.runtime.checkpoint``.
 
 A checkpoint stores the GLOBAL relations (Vertex, Msg, GS) as one npz
 with the reference's field names and dtypes (``vid`` ... ``gs_msgs``),
@@ -17,12 +17,21 @@ skips; the ``LATEST`` marker is a hint, never trusted over the sidecar.
 The gap between payload and sidecar is a chaos-harness site
 (``checkpoint.commit``).
 
-The out-of-core (directory) checkpoints come with the out-of-core slice.
+OUT-OF-CORE checkpoints (``save_ooc_checkpoint``) snapshot the
+``TieredStore`` at the FILE level: its spill pages are hard-linked or
+copied into a checkpoint directory (DRAM-tier pages serialize through a
+``SpillSlot``, so every page carries its CRC trailer), beside ``gs.npz``,
+``meta.json`` (the plan in effect, the capacities, the controller's
+hysteresis state) and, written LAST, the atomic ``COMMIT.json`` manifest.
+The format is the reference's, so either package resumes the other's
+snapshots (``run_out_of_core(resume_from=...)``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import time
 from pathlib import Path
 
@@ -32,7 +41,15 @@ import torch
 from repro_torch.core.relations import (N_OVERFLOW, GlobalState, MsgRel,
                                         VertexRel, gs_from_numpy,
                                         msgs_from_numpy, vertex_from_numpy)
-from repro_torch.storage.spillfile import page_checksum
+from repro_torch.storage.spillfile import page_checksum, verify_page_file
+
+# the host-resident relations an OOC checkpoint carries (one spill page
+# per super-partition each) plus the run-structured inbox chunks
+OOC_RELATIONS = ("vid", "halt", "value", "edge_src", "edge_dst",
+                 "edge_val")
+OOC_INBOX = ("inbox_dst", "inbox_pay", "inbox_val")
+
+OOC_COMMIT = "COMMIT.json"
 
 
 class CheckpointCorruption(RuntimeError):
@@ -90,6 +107,147 @@ def save_checkpoint(ckpt_dir: str, superstep: int, vert: VertexRel,
                    "saved_at": time.time()})
     (d / "LATEST").write_text(path.name)
     return str(path)
+
+
+def save_ooc_checkpoint(ckpt_dir: str, superstep: int, store, gs, *,
+                        inbox_gen: int, inbox_width: int,
+                        sp: int, plan=None, ec=None,
+                        controller_state=None) -> str:
+    """Snapshot an out-of-core job at a superstep boundary. Pages move at
+    the file level (hard-link for immutable inbox generations, copy
+    otherwise — no DRAM round-trip on the disk tier; every exported page
+    carries its CRC trailer). The directory is written in place and
+    COMMITTED by the atomic ``COMMIT.json`` manifest at the end — a
+    writer that dies mid-export leaves a manifest-less partial that the
+    checkpoint selectors skip. ``gs`` is a GlobalState (any device)."""
+    d = Path(ckpt_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    name = f"ooc_{superstep:06d}"
+    tmp = d / name
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+    for nm in OOC_RELATIONS:
+        for s in range(store.n_sp):
+            store.export_page((nm, s), tmp / f"{nm}_{s}.npy")
+    for nm in OOC_INBOX:
+        for q in range(store.n_sp):
+            store.export_page((nm, inbox_gen, q), tmp / f"{nm}_{q}.npy")
+    np.savez(tmp / "gs.npz",
+             halt=_np(gs.halt), aggregate=_np(gs.aggregate),
+             superstep=_np(gs.superstep), overflow=_np(gs.overflow),
+             active=_np(gs.active_count), msgs=_np(gs.msg_count))
+    (tmp / "meta.json").write_text(json.dumps(
+        {"format": 1, "superstep": int(superstep), "n_sp": store.n_sp,
+         "sp": int(sp), "inbox_width": int(inbox_width),
+         # the plan IN EFFECT: it produced the checkpointed inbox's run
+         # layout, and a plan="auto" resume restarts from it
+         "plan": dataclasses.asdict(plan) if plan is not None else None,
+         # the (possibly overflow-regrown) capacities
+         "caps": ({"bucket_cap": ec.bucket_cap,
+                   "frontier_cap": ec.frontier_cap,
+                   "mutation_cap": ec.mutation_cap}
+                  if ec is not None else None),
+         # the AdaptiveController's hysteresis state, so a resume right
+         # before a pending switch does not re-pay the patience window
+         "controller": controller_state,
+         "saved_at": time.time()}))
+    # the crash-mid-checkpoint window: pages + meta visible, no manifest
+    _faults().hit("checkpoint.commit", name)
+    files = {}
+    crcs = {}
+    for f in sorted(tmp.iterdir()):
+        if f.name == OOC_COMMIT or f.name.startswith("."):
+            continue
+        files[f.name] = f.stat().st_size
+        if f.suffix != ".npy":   # page files carry their own CRC trailer
+            algo, crc = _file_crc(f)
+            crcs[f.name] = [algo, crc]
+    _write_commit(tmp / OOC_COMMIT,
+                  {"superstep": int(superstep), "files": files,
+                   "crcs": crcs, "saved_at": time.time()})
+    (d / "LATEST_OOC").write_text(name)
+    return str(tmp)
+
+
+def verify_ooc_checkpoint(path, *, deep: bool = True) -> list:
+    """Validity check against the COMMIT manifest: every listed file
+    present with its recorded size, manifest'd CRCs matching, and (deep)
+    every page file passing its embedded CRC trailer. Returns the list
+    of violations — empty means the snapshot is safe to resume from."""
+    p = Path(path)
+    errs = []
+    commit = p / OOC_COMMIT
+    if not commit.exists():
+        return [f"{p.name}: no {OOC_COMMIT} manifest (partial checkpoint)"]
+    try:
+        doc = json.loads(commit.read_text())
+    except (OSError, ValueError) as e:
+        return [f"{p.name}: unreadable manifest ({e})"]
+    for name, size in doc.get("files", {}).items():
+        f = p / name
+        if not f.exists():
+            errs.append(f"{p.name}/{name}: listed in manifest but missing")
+            continue
+        if f.stat().st_size != size:
+            errs.append(f"{p.name}/{name}: size {f.stat().st_size} != "
+                        f"manifest {size}")
+            continue
+        if name in doc.get("crcs", {}):
+            algo, want = doc["crcs"][name]
+            got_algo, got = _file_crc(f)
+            if got_algo == algo and got != want:
+                errs.append(f"{p.name}/{name}: CRC mismatch")
+        elif deep and name.endswith(".npy"):
+            if not verify_page_file(f):
+                errs.append(f"{p.name}/{name}: page CRC trailer mismatch")
+    return errs
+
+
+def ooc_checkpoints(ckpt_dir: str) -> list:
+    """COMMITTED checkpoint directories under ``ckpt_dir``, oldest
+    first. Partials (no manifest) are never listed."""
+    d = Path(ckpt_dir)
+    if not d.is_dir():
+        return []
+    return sorted(str(p) for p in d.iterdir()
+                  if p.is_dir() and p.name.startswith("ooc_")
+                  and (p / OOC_COMMIT).exists())
+
+
+def latest_ooc_checkpoint(ckpt_dir: str, *, skip=(), deep: bool = False):
+    """Newest VALID out-of-core checkpoint: committed manifest, not in
+    ``skip``, and (``deep=True``, the recovery path) passing full page
+    CRC verification. The LATEST_OOC marker is only a hint — a partial
+    or corrupt directory is never selected."""
+    skip = {str(Path(s)) for s in skip}
+    for p in reversed(ooc_checkpoints(ckpt_dir)):
+        if str(Path(p)) in skip:
+            continue
+        if deep and verify_ooc_checkpoint(p, deep=True):
+            continue
+        return p
+    return None
+
+
+def load_ooc_meta(path: str):
+    """Resolve an OOC checkpoint path (a checkpoint directory or a parent
+    directory of checkpoints) and load its metadata. Parent resolution
+    only ever lands on a COMMITTED snapshot.
+    -> (meta dict, gs npz mapping, checkpoint Path)."""
+    p = Path(path)
+    if not (p / "meta.json").exists():
+        cand = latest_ooc_checkpoint(p)
+        if cand is None:
+            raise FileNotFoundError(
+                f"{path!r} is not an out-of-core checkpoint (no meta.json "
+                "and no committed checkpoints inside)")
+        p = Path(cand)
+    elif not (p / OOC_COMMIT).exists():
+        raise CheckpointCorruption(p, "no COMMIT manifest (partial)")
+    meta = json.loads((p / "meta.json").read_text())
+    gs = dict(np.load(p / "gs.npz"))
+    return meta, gs, p
 
 
 def checkpoints(ckpt_dir: str) -> list:

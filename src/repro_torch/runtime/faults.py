@@ -37,9 +37,10 @@ process-global and survives recovery attempts, so a ``times=1`` fault
 fires once and the replay passes — exactly the transient-failure model
 the recovery supervisor is built for.
 
-In the port so far only ``checkpoint.commit`` (``save_checkpoint``) and
-``superstep`` (``run_host``) are wired; the storage sites come with the
-out-of-core slice, ``sharded.exchange`` with the multi-device slice.
+Every site but ``sharded.exchange`` is wired in the port: the storage
+sites by ``repro_torch.storage``, ``checkpoint.commit`` by both savers,
+``superstep`` by ``run_host`` and ``run_out_of_core``;
+``sharded.exchange`` comes with the multi-device slice.
 
 ``REPRO_FAULT_PLAN`` is either a path to a plan JSON or the JSON itself
 (starts with ``{``); ``install_from_env`` arms it (the port's CLI, which

@@ -1,8 +1,9 @@
 """chip_smoke.py's phases 10 (mutations and the library programs), 11
-(checkpoints and recovery) and 12 (the planner), rehearsed on the CPU at a small graph500
-scale through the port's plain path: the same runs and the same checks
-against scipy and closed forms as on the card, so a fault in the
-phases' own logic shows here and not first on the card."""
+(checkpoints and recovery), 12 (the planner) and 13 (out-of-core),
+rehearsed on the CPU at a small graph500 scale through the port's plain
+path: the same runs and the same checks against scipy and closed forms
+as on the card, so a fault in the phases' own logic shows here and not
+first on the card."""
 import sys
 from pathlib import Path
 
@@ -59,3 +60,24 @@ def test_phase_12_on_the_cpu():
         out["grid_static"]["final_plan"]
     assert out["grid_auto_calibrated"]["supersteps"] == grid["supersteps"]
     assert out["sssp"]["supersteps"] >= 1 and out["pagerank"]["supersteps"]
+
+
+def test_phase_13_on_the_cpu():
+    """Phase 13 (out-of-core) on the CPU at graph500-10 for both graphs:
+    the same runs and checks as on the card (PageRank against scipy and
+    run_host, SSSP against scipy, synchronous / disk tier / resumed
+    against the streamed run, auto SSSP), without the card's launches,
+    memory peak and profile."""
+    big = cs.graph_and_references(SCALE, "cpu")
+    out = cs.out_of_core_phase(big, big, device="cpu")
+    assert out["pagerank_big"]["supersteps"] == 15
+    assert out["pagerank_big"]["partitions"] == cs.OOC_P
+    for label in ("pagerank_sync", "pagerank_disk", "pagerank_resumed"):
+        assert out[label]["bit_equal_streamed"], label
+    assert out["pagerank_disk"]["spill_write_bytes"] > 0
+    assert 0.0 <= out["pagerank_disk"]["cache_hit_rate_median"] <= 1.0
+    assert out["pagerank_resumed"]["resumed_supersteps"] == 5
+    auto = out["sssp_auto"]
+    assert auto["switches"] and auto["final_plan"].startswith("left_outer")
+    assert "busy" not in out and "peak_allocated_bytes" not in \
+        out["pagerank_big"]

@@ -25,7 +25,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.graph.algorithms", "repro_torch.graph.generators",
            "repro_torch.planner.cost", "repro_torch.planner.optimizer",
            "repro_torch.planner.adaptive", "repro_torch.planner.stats",
-           "repro_torch.launch.op_cost"]
+           "repro_torch.launch.op_cost", "repro_torch.core.ooc",
+           "repro_torch.storage.pager", "repro_torch.storage.io_engine",
+           "repro_torch.storage.tiered", "repro_torch.obs",
+           "repro_torch.obs.trace", "repro_torch.obs.metrics"]
 
 
 def test_imports_with_jax_unimportable():
@@ -63,6 +66,19 @@ def test_no_jax_or_repro_import_in_sources():
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{f}: {name}"
+
+
+def test_storage_threads_make_no_device_call():
+    """The I/O engine's worker threads do disk and numpy work only: the
+    storage modules and the metrics they record into never import
+    torch, so no CUDA call can run on them; every device copy is the
+    out-of-core driver's. (trace.py imports torch.profiler only when a
+    tracer is started with torch_annotations=True.)"""
+    files = sorted((PORT / "storage").glob("*.py")) + \
+        [PORT / "obs" / "metrics.py"]
+    for f in files:
+        tops = {n.split(".")[0] for n in _imports(f)}
+        assert "torch" not in tops, f
 
 
 def test_kernels_are_cuda_sources_in_the_port():

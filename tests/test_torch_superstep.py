@@ -24,6 +24,7 @@ import repro_torch.core as T
 import repro_torch.graph as TG
 from repro.core.superstep import make_superstep as j_make_superstep
 from repro.kernels import backend as j_backend
+from repro_torch.core.driver import prepare_run
 from repro_torch.core.superstep import make_superstep as t_make_superstep
 
 N = 220
@@ -130,11 +131,19 @@ def test_fused_pack_with_overflow_matches_kernel_path(algo):
 
 
 def test_superstep_refuses_what_later_slices_bring():
+    """The multi-device transport still raises; ooc_collect (the
+    out-of-core slice) builds and hands back the (P, n_parts, C)
+    buckets, their occupancy counts and no mutation buckets."""
     prog = TG.SSSP(source=0)
     ec = T.EngineConfig(n_parts=4, bucket_cap=8)
-    with pytest.raises(NotImplementedError):
-        t_make_superstep(prog, T.PhysicalPlan(),
-                         dataclasses.replace(ec, ooc_collect=True))
+    step = t_make_superstep(prog, T.PhysicalPlan(),
+                            dataclasses.replace(ec, ooc_collect=True))
+    vert = T.load_graph(EDGES, N, 4, value_dims=1, device="cpu")
+    _, vert, msg, gs = prepare_run(vert, prog, T.PhysicalPlan(), ec)
+    v2, buckets, g2, counts, mut = step(vert, msg, gs)
+    assert buckets.dst.shape == (4, 4, 8) and counts.shape == (4, 4)
+    assert torch.equal(counts, buckets.valid.sum(2, dtype=torch.int32))
+    assert mut is None and int(g2.msg_count) == int(counts.sum())
     with pytest.raises(NotImplementedError):
         t_make_superstep(prog, T.PhysicalPlan(),
                          dataclasses.replace(ec, axis_name=("data",)))
