@@ -137,12 +137,34 @@ and never prints its last line):
    launches, the disk tier's hit rate and spill bytes, and the device
    busy share of one streamed superstep (torch.profiler). The counts
    are set to 0 before each run and read after it.
+14. the port's command-line entry point, repro_torch.launch.pregel_run,
+   called in this process (run(parse_args([...]), graph=...)) on the
+   graphs the earlier phases hold, the counts set to 0 before each run
+   and read after it: (a) PageRank at graph500-<scale> with --trace
+   --report --explain --metrics --progress: ranks within rtol 1e-5 of
+   phase 3's and 1e-4 of scipy, one fold and one gather launch a
+   superstep, a valid Chrome trace with a superstep span a superstep, a
+   valid run report with an audit row a superstep and no error row; the
+   traced median superstep beside phase 3's untraced one and the
+   memwatch HBM estimate's peak beside max_memory_allocated, which the
+   estimate (shapes only, a lower bound) must not pass. (b) SSSP
+   under --auto-plan --explain --metrics --trace: scipy's hop counts,
+   phase 12's switch supersteps, a replan decision at each with a
+   candidate table of at least two plans, host.plan_switches counting
+   them, replan spans. (c) PageRank --ooc on phase 11's graph (P = 8, 2
+   on the card, the disk tier at a third of phase 13's peak pager bytes,
+   mru, one I/O thread): within rtol 1e-5 of phase 13's streamed run,
+   non-zero DRAM and SSD peaks in the report, page-fault spans and spans
+   on at least 2 threads. (d) SSSP on --dataset webmap-large under
+   --recover --checkpoint-every 3 with REPRO_FAULT_PLAN set to one worker
+   failure after superstep 5: one recovery line, the distances of an
+   uninterrupted CLI run, the fault in the report's faults section.
 
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
-kernels, on phase 12's and phase 13's runs), max abs err, kernel / plain / bound /
-library ms. The last line is {"ok": true, "device": {...}}.
+kernels, on phase 12's, 13's and 14's runs), max abs err, kernel / plain /
+bound / library ms. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1534,7 +1556,7 @@ def superstep_busy(prog, vert, device) -> dict:
                 top=[(e.key[:50], round(_device_ms(e), 3)) for e in top])
 
 
-def out_of_core_phase(big, small, *, device="cuda") -> dict:
+def out_of_core_phase(big, small, *, device="cuda", keep=None) -> dict:
     """Phase 13: run_out_of_core with the graph on the host and
     OOC_BUDGET of OOC_P partitions on the card at a time. ``big`` and
     ``small`` are graph_and_references tuples (edges, n, run_host values,
@@ -1549,7 +1571,8 @@ def out_of_core_phase(big, small, *, device="cuda") -> dict:
     thread) and the resume from the checkpoint, each within rtol 1e-5 of
     the streamed run (bit equality reported: the card's scatter-adds
     need not add in one order); SSSP under plan="auto" equal to scipy;
-    and the device busy share of one streamed superstep."""
+    and the device busy share of one streamed superstep. ``keep`` (a
+    dict) receives the streamed run's ranks on ``small``."""
     import torch
     from repro_torch.core import gather_values, load_graph
     from repro_torch.graph import SSSP, PageRank
@@ -1610,6 +1633,8 @@ def out_of_core_phase(big, small, *, device="cuda") -> dict:
         res, st = ooc_run(pr, vert, device, checkpoint_every=10,
                           checkpoint_dir=str(ck))
         streamed = gather_values(res.vertex, n)[:, 0]
+        if keep is not None:
+            keep["streamed"] = streamed     # phase 14's reference
         peak_pager = max(s["pager_peak_bytes"] for s in res.stats
                          if "pager_peak_bytes" in s)
         st["max_rel_err_run_host"] = rel_close(
@@ -1662,6 +1687,280 @@ def out_of_core_phase(big, small, *, device="cuda") -> dict:
                   "pagerank_resumed", "sssp_auto", "busy"):
         if label in out:
             log(f"phase 13: {label} {json.dumps(out[label])}")
+    return out
+
+
+# ------------------------------------------------------------- phase 14
+
+# one worker failure after superstep 5 (the chaos harness's plan format)
+FAULT_PLAN = {"seed": 0, "faults": [{"site": "superstep", "kind": "worker",
+                                     "superstep": 5, "worker": 1}]}
+# the CLI's lines worth keeping in the log (progress, metrics and the
+# audit table stay in the run report and the trace)
+CLI_LINES = ("pagerank on", "sssp on", "cc on", "recovery #", "final plan",
+             "  superstep", "disk tier", "readiness stall", "report:",
+             "trace:", "value head")
+
+
+def cli(label: str, argv, device, graph=None):
+    """One run of the port's CLI in this process
+    (``repro_torch.launch.pregel_run.run``), the counts set to 0 just
+    before it and read just after, its standard output captured (its
+    summary lines are logged). -> (RunResult, report dict or None, stats
+    dict, output text)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.launch.pregel_run import parse_args, run
+    args = parse_args(list(argv) + ["--device", device])
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    reset_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res, rep = run(args, graph=graph)
+    sync()
+    run_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith(CLI_LINES):
+            log(f"phase 14 {label}: {line}")
+    walls = [s["wall_s"] for s in res.stats if "wall_s" in s]
+    # run_s: the CLI call (graph load, run, reports); job_s: the driver's
+    return res, rep, dict(
+        supersteps=res.supersteps, run_s=run_s, job_s=res.wall_s,
+        superstep_median_s=statistics.median(walls),
+        launches={k: c.launches for k, c in COUNTERS.items()}), text
+
+
+def check_report(label: str, rep: dict, rows: int) -> dict:
+    """The run report is schema-valid with ``rows`` audit rows and no
+    ``error`` row (the audit's own swallowed exception)."""
+    from repro_torch.obs.report import validate_report
+    errs = validate_report(rep)
+    if errs:
+        raise AssertionError(f"{label}: report violations {errs}")
+    audit = [r["audit"] for r in rep["supersteps"] if "audit" in r]
+    bad = [a["error"] for a in audit if "error" in a]
+    if bad or len(audit) != rows:
+        raise AssertionError(f"{label}: {len(audit)} audit rows (want "
+                             f"{rows}), error rows {bad}")
+    return rep["summary"]
+
+
+def read_trace(path) -> tuple:
+    """-> (trace JSON, its validation summary), the port's validator."""
+    from repro_torch.obs.export import validate_chrome_trace
+    obj = json.loads(Path(path).read_text())
+    return obj, validate_chrome_trace(obj)
+
+
+def spans_named(obj: dict, names) -> list:
+    return [e for e in obj["traceEvents"]
+            if e["ph"] == "X" and e["name"] in names]
+
+
+def cli_phase(big, small, *, phase3: dict, sssp_switches, ooc_streamed,
+              pager_peak: int, device="cuda", scale=22,
+              small_scale=CKPT_SCALE) -> dict:
+    """Phase 14: the port's command-line entry point
+    (``repro_torch.launch.pregel_run``) driven in this process on
+    ``device``. ``big`` and ``small`` are graph_and_references tuples
+    (phase 3's graph and phase 11's); ``phase3`` phase 3's stats (its
+    untraced median superstep), ``sssp_switches`` the supersteps of phase
+    12's auto SSSP plan switches, ``ooc_streamed`` phase 13's streamed
+    PageRank ranks on ``small`` and ``pager_peak`` that run's peak pager
+    bytes.
+    (a) PageRank in memory with the trace, report, audit, metrics and
+    progress on: ranks within rtol 1e-5 of phase 3's and 1e-4 of scipy,
+    one fold and one gather launch a superstep, a valid trace with a
+    superstep span a superstep, a valid report with an audit row a
+    superstep and no error row; the traced median superstep beside
+    phase 3's untraced one, the HBM estimate's peak beside
+    max_memory_allocated, which it must not pass (it counts shapes
+    only). (b) SSSP under --auto-plan: scipy's hop counts,
+    phase 12's switches, a replan decision at each with its candidate
+    table, host.plan_switches counting them, replan spans. (c) PageRank
+    out of core on ``small`` (P = 8, 2 on the card, the disk tier at a
+    third of ``pager_peak``, mru, one I/O thread): within rtol 1e-5 of
+    ``ooc_streamed``, non-zero DRAM and SSD peaks, fault spans and spans
+    on at least 2 threads. (d) SSSP on --dataset webmap-large under
+    --recover with REPRO_FAULT_PLAN (one worker failure after superstep
+    5): one recovery line, the distances of an uninterrupted run, the
+    fault in the report's faults section."""
+    import os
+    import torch
+    from repro_torch.core import gather_values
+    from repro_torch.graph.algorithms import INF
+    from repro_torch.runtime import faults
+    cuda = device == "cuda"
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        # (a) PageRank in memory, every observability output on
+        edges, n, values, pr_ref, hops = big
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        res, rep, st, _ = cli("pagerank", [
+            "--algo", "pagerank", "--parts", str(P), "--dataset",
+            f"graph500-{scale}", "--trace", str(d / "pr_trace.json"),
+            "--report", str(d / "pr_report.json"), "--explain",
+            "--metrics", "--progress"], device, graph=(edges, n))
+        ranks = gather_values(res.vertex, n)[:, 0]
+        st["max_rel_err_run_host"] = rel_close(
+            ranks, values["pagerank"][:, 0], 1e-5, "CLI PageRank vs run_host")
+        st["max_rel_err_scipy"] = rel_close(ranks, pr_ref, 1e-4,
+                                            "CLI PageRank vs scipy")
+        steps = res.supersteps
+        if cuda and not all(st["launches"][k] == steps
+                            for k in GRAPH_KERNELS):
+            raise AssertionError(f"CLI PageRank: launches {st['launches']}, "
+                                 f"want one of each kernel a superstep")
+        obj, tsum = read_trace(d / "pr_trace.json")
+        n_step = len(spans_named(obj, ("superstep",)))
+        if n_step < steps:
+            raise AssertionError(f"CLI PageRank trace: {n_step} superstep "
+                                 f"spans for {steps} supersteps")
+        st["summary"] = check_report("CLI PageRank", json.loads(
+            (d / "pr_report.json").read_text()), steps)
+        st.update(trace_spans=tsum["spans"], superstep_spans=n_step,
+                  untraced_superstep_median_s=phase3["pagerank"][
+                      "superstep_median_s"],
+                  hbm_estimate_peak_bytes=rep["memory_peaks"]["hbm_bytes"])
+        st["traced_over_untraced"] = (st["superstep_median_s"]
+                                      / st["untraced_superstep_median_s"])
+        if cuda:
+            # the estimate counts shapes only, so it is a lower bound of
+            # what the allocator held: above the card's peak, it is wrong
+            peak = torch.cuda.max_memory_allocated()
+            est = st["hbm_estimate_peak_bytes"]
+            if not 0 < est <= peak:
+                raise AssertionError(f"CLI PageRank: memwatch HBM estimate "
+                                     f"{est} B outside (0, max_memory_"
+                                     f"allocated {peak} B]")
+            st.update(max_memory_allocated=peak,
+                      allocated_over_estimate=peak / est)
+        out["pagerank"] = st
+        log(f"phase 14: PageRank {json.dumps(st)}")
+        del res, rep
+        free(device)
+
+        # (b) SSSP under the planner
+        res, rep, st, _ = cli("sssp", [
+            "--algo", "sssp", "--parts", str(P), "--dataset",
+            f"graph500-{scale}", "--auto-plan", "--explain", "--metrics",
+            "--trace", str(d / "sssp_trace.json")], device,
+            graph=(edges, n))
+        want = np.where(np.isinf(hops), np.float32(INF), hops) \
+            .astype(np.float32)
+        bad = int((gather_values(res.vertex, n)[:, 0] != want).sum())
+        if bad:
+            raise AssertionError(f"CLI SSSP differs from scipy at {bad} "
+                                 "vertices")
+        switches = [s["superstep"] for s in res.stats
+                    if s.get("event") == "plan-switch"]
+        replans = [x for x in rep["decisions"] if x["kind"] == "replan"]
+        counted = sum(s.get("metrics", {}).get("host.plan_switches", 0)
+                      for s in res.stats if "wall_s" in s)
+        if switches != list(sssp_switches) \
+                or [x["superstep"] for x in replans] != switches \
+                or any(len(x["candidates"]) < 2 for x in replans) \
+                or counted != len(switches):
+            raise AssertionError(
+                f"CLI SSSP: switches {switches} (phase 12: "
+                f"{list(sssp_switches)}), replans {replans}, "
+                f"host.plan_switches {counted}")
+        obj, tsum = read_trace(d / "sssp_trace.json")
+        n_replan = len(spans_named(obj, ("replan",)))
+        if switches and not n_replan:
+            raise AssertionError("CLI SSSP trace: no replan span")
+        check_report("CLI SSSP", rep, res.supersteps)
+        need_launches("CLI SSSP", st, ("segment_combine",), device)
+        st.update(switches=switches, plan_switches_metric=counted,
+                  candidates=[len(x["candidates"]) for x in replans],
+                  replan_spans=n_replan, final_plan=fmt_plan(res.plan))
+        out["sssp"] = st
+        log(f"phase 14: SSSP {json.dumps(st)}")
+        del res, rep
+        free(device)
+
+        # (c) PageRank out of core on the disk tier
+        s_edges, s_n = small[0], small[1]
+        budget = pager_peak // 3
+        res, rep, st, _ = cli("ooc", [
+            "--algo", "pagerank", "--ooc", "--parts", str(OOC_P),
+            "--budget-partitions", str(OOC_BUDGET), "--dataset",
+            f"graph500-{small_scale}",
+            "--disk-dir", str(d / "spill"), "--memory-budget-bytes",
+            str(budget), "--eviction", "mru", "--io-threads", "1",
+            "--report", str(d / "ooc_report.json"),
+            "--trace", str(d / "ooc_trace.json")], device,
+            graph=(s_edges, s_n))
+        st["max_rel_err_streamed"] = rel_close(
+            gather_values(res.vertex, s_n)[:, 0], ooc_streamed, 1e-5,
+            "CLI out-of-core PageRank vs phase 13's streamed run")
+        ooc_rep = json.loads((d / "ooc_report.json").read_text())
+        check_report("CLI out-of-core PageRank", ooc_rep, res.supersteps)
+        peaks = ooc_rep["memory_peaks"]
+        if not (peaks.get("dram_resident_bytes", 0) > 0
+                and peaks.get("ssd_spill_bytes", 0) > 0):
+            raise AssertionError(f"CLI out-of-core peaks: {peaks}")
+        obj, tsum = read_trace(d / "ooc_trace.json")
+        faulted = spans_named(obj, ("page_fault", "fault_bg"))
+        if not faulted or tsum["span_threads"] < 2:
+            raise AssertionError(f"CLI out-of-core trace: {len(faulted)} "
+                                 f"fault spans, {tsum}")
+        need_launches("CLI out-of-core PageRank", st, GRAPH_KERNELS, device)
+        st.update(budget_bytes=budget, peaks=peaks,
+                  fault_spans=len(faulted),
+                  fault_threads=len({e["tid"] for e in faulted}),
+                  span_threads=tsum["thread_names"])
+        out["ooc_pagerank"] = st
+        log(f"phase 14: out-of-core PageRank {json.dumps(st)}")
+        del res, rep
+        free(device)
+
+        # (d) recovery through the CLI's own dataset path
+        res, _, st, _ = cli("sssp_clean", [
+            "--algo", "sssp", "--parts", str(P), "--dataset",
+            "webmap-large"], device)
+        n_large = int((res.vertex.vid >= 0).sum())
+        clean = gather_values(res.vertex, n_large)[:, 0]
+        out["clean_sssp"] = st
+        del res
+        os.environ[faults.ENV_PLAN] = json.dumps(FAULT_PLAN)
+        try:
+            res, rep, st, text = cli("recover", [
+                "--algo", "sssp", "--parts", str(P), "--dataset",
+                "webmap-large", "--recover", "--checkpoint-every", "3",
+                "--checkpoint-dir", str(d / "ckpt"),
+                "--report", str(d / "recover_report.json")], device)
+        finally:
+            del os.environ[faults.ENV_PLAN]
+            faults.clear()
+        lines = [x for x in text.splitlines() if x.startswith("recovery #")]
+        got = gather_values(res.vertex, n_large)[:, 0]
+        fl = rep.get("faults", {})
+        fired = sum(sp["fired"] for sp in
+                    fl.get("injected", {}).get("specs", ()))
+        if len(lines) != 1 or not np.array_equal(got, clean) \
+                or len(fl.get("recovery", ())) != 1 or fired != 1:
+            raise AssertionError(f"CLI recovery: {lines}, equal "
+                                 f"{np.array_equal(got, clean)}, faults "
+                                 f"{fl}")
+        check_report("CLI recovered SSSP", rep,
+                     sum(1 for s in res.stats if "wall_s" in s))
+        need_launches("CLI recovered SSSP", st, ("segment_combine",), device)
+        st.update(recovery=fl["recovery"][0]["restored_from"],
+                  healthy_workers=fl["recovery"][0]["healthy_workers"],
+                  injected_fired=fired)
+        out["recover_sssp"] = st
+        log(f"phase 14: recovered SSSP {json.dumps(st)}")
+        del res, rep
+        free(device)
     return out
 
 
@@ -2316,7 +2615,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-13 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-14 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -2436,17 +2735,32 @@ def card_phases(args, name: str, child) -> int:
 
     # 13. out-of-core: the graph on the host, a quarter of it on the card
     t = time.perf_counter()
-    phase13 = out_of_core_phase((edges, n, values, pr_ref, hops), small)
+    big = (edges, n, values, pr_ref, hops)
+    kept = {}
+    phase13 = out_of_core_phase(big, small, keep=kept)
     ooc_paths = {f"ooc_{k}": v["launches"] for k, v in phase13.items()
                  if "launches" in v}
     log(f"phase 13: {time.perf_counter() - t:.1f} s; launches by path: "
         + json.dumps(ooc_paths))
     by_path.update(ooc_paths)
+
+    # 14. the port's CLI on the card, in this process
+    t = time.perf_counter()
+    phase14 = cli_phase(
+        big, small, phase3=stats,
+        sssp_switches=[sw[0] for sw in phase12["sssp"]["switches"]],
+        ooc_streamed=kept.pop("streamed"),
+        pager_peak=phase13["pagerank_streamed"]["pager_peak_bytes"],
+        scale=args.scale, small_scale=ck_scale)
+    cli_paths = {f"cli_{k}": v["launches"] for k, v in phase14.items()}
+    log(f"phase 14: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps(cli_paths))
+    by_path.update(cli_paths)
     for k in kernels:
         if k["name"] in GRAPH_KERNELS:
             k["launches_by_path"] = {p: counts[k["name"]]
                                      for p, counts in by_path.items()}
-    del edges, values, small
+    del edges, values, small, big
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@
                  previous state), the left-outer frontier refit, mid-run
                  replanning under plan="auto", and checkpoints at
                  superstep boundaries with resume and supervised recovery
-                 (Section 5.5).
+                 (Section 5.5). With the observability switches on it
+                 records the reference's spans, audit rows, decisions,
+                 memory samples and counters (``repro_torch.obs``).
 
 Both run on the device the graph was loaded on. plan="auto" turns on the
 cost-based planner (``repro_torch.planner``), with the machine model of
@@ -36,6 +38,8 @@ from repro_torch.core.relations import (OVF_BUCKET, OVF_EDGE, OVF_FRONTIER,
                                         out_degrees)
 from repro_torch.core.superstep import EngineConfig, make_superstep
 from repro_torch.kernels import backend as kbackend
+from repro_torch.obs import explain, memwatch, trace
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.planner.stats import StatsCollector
 
 PlanArg = Union[PhysicalPlan, str]   # a PhysicalPlan or the string "auto"
@@ -261,6 +265,18 @@ def run_host(vert: VertexRel, program: VertexProgram,
                                      kernel_impl=kernel_impl,
                                      auto_config=auto_config,
                                      auto_space=auto_space)
+    if explain.enabled():
+        # plan-audit ledger: bind the run context so each superstep's
+        # stats record can be re-priced under the in-effect plan, with
+        # the machine model of the graph's device
+        from repro_torch.planner.cost import machine_for
+        explain.attach(
+            program, vert=vert,
+            g=controller.g if controller is not None else None,
+            plan=plan,
+            machine=(controller.machine if controller is not None
+                     else machine_for(vert.vid.device)),
+            space_kw=auto_space)
     if resume_from is None:
         ec, vert, msg, gs = prepare_run(vert, program, plan, ec)
     else:
@@ -275,9 +291,13 @@ def run_host(vert: VertexRel, program: VertexProgram,
     step = make_superstep(program, plan, ec)
     n_live = (controller.g.n_vertices if controller is not None
               else int((vert.vid >= 0).sum()))
+    metrics = MetricsRegistry()
     coll = StatsCollector(n_partitions=vert.num_partitions,
                           vertex_capacity=vert.capacity,
-                          msg_dims=program.msg_dims, n_vertices=n_live)
+                          msg_dims=program.msg_dims, n_vertices=n_live,
+                          metrics=metrics)
+    m_regrows = metrics.counter("host.regrows")
+    m_switches = metrics.counter("host.plan_switches")
     stats = []
     i = i0
     # a superstep built anew (the first, and after a regrow, a refit or a
@@ -287,8 +307,11 @@ def run_host(vert: VertexRel, program: VertexProgram,
         faults.superstep_tick(i, "host")
         ts = time.time()
         this_recompiled, recompiled = recompiled, False
-        vert2, msg2, gs2 = step(vert, msg, gs)
-        ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
+        # the overflow readback is the superstep's device sync: the span
+        # closes after it, so it times the superstep and not its enqueue
+        with trace.annotate("superstep", "compute"):
+            vert2, msg2, gs2 = step(vert, msg, gs)
+            ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
         if (ovf_delta > 0).any():
             ec = grow_overflowed(ec, ovf_delta,
                                  vertex_capacity=vert.capacity)
@@ -299,6 +322,8 @@ def run_host(vert: VertexRel, program: VertexProgram,
                 frontier_cap=ec.frontier_cap,
                 mutation_cap=ec.mutation_cap,
                 sources=np.flatnonzero(ovf_delta > 0).tolist()).as_dict())
+            m_regrows.inc()
+            trace.instant("regrow", "replan", superstep=i)
             recompiled = True
             if controller is not None:
                 controller.note_shape_change()
@@ -310,11 +335,23 @@ def run_host(vert: VertexRel, program: VertexProgram,
                           wall_s=time.time() - ts,
                           recompiled=this_recompiled)
         stats.append(rec.as_dict())
+        if explain.enabled():
+            # audit the plan that EXECUTED this superstep (a switch
+            # below only affects the next one)
+            explain.superstep(rec, plan=plan, bucket_cap=ec.bucket_cap)
+        if memwatch.enabled():
+            memwatch.configure(ec=ec, Np=vert.capacity,
+                               Ep=vert.edge_src.shape[1],
+                               value_dims=program.value_dims,
+                               msg_dims=program.msg_dims)
+            memwatch.sample(i)
         switched = False
         if controller is not None and not bool(gs.halt):
             # mid-run replanning: switch the physical plan when observed
             # frontier density pushes another plan below the current one
-            new_plan = controller.observe(rec, bucket_cap=ec.bucket_cap)
+            with trace.span("replan", "replan"):
+                new_plan = controller.observe(rec,
+                                              bucket_cap=ec.bucket_cap)
             if new_plan is not None:
                 from repro_torch.planner import migrate_msgs
                 msg = migrate_msgs(msg, plan, new_plan, ec.n_parts)
@@ -340,6 +377,7 @@ def run_host(vert: VertexRel, program: VertexProgram,
                     sender_combine=plan.sender_combine,
                     storage=plan.storage,
                     frontier_cap=ec.frontier_cap).as_dict())
+                m_switches.inc()
                 recompiled = switched = True
                 controller.note_shape_change()
         # adaptive frontier refit (left-outer plan): when the live set
@@ -370,7 +408,8 @@ def run_host(vert: VertexRel, program: VertexProgram,
             failure_injector(i, vert, msg, gs)
         if checkpoint_every and i % checkpoint_every == 0 \
                 and checkpoint_dir:
-            save_checkpoint(checkpoint_dir, i, vert, msg, gs)
+            with trace.span("checkpoint", "checkpoint"):
+                save_checkpoint(checkpoint_dir, i, vert, msg, gs)
         if on_superstep is not None:
             on_superstep(i, vert, msg, gs, rec.as_dict())
         if bool(gs.halt):

@@ -77,9 +77,16 @@ Checkpoints export the store's pages at the file level
 format) with the plan, the capacities and the controller's hysteresis
 state in the meta; ``resume_from=`` restarts from such a directory.
 
-The reference's plan audit and memory ledger (``explain`` /
-``memwatch``) are not on this path yet; they come with the port's
-observability slice.
+With the observability switches on, the run records the reference's
+spans and counters (``obs.trace``). Its ``superstep`` spans, one per
+super-partition nested in ``step_enqueue`` as the reference's jitted
+step wrapper nests them, time the enqueue of the step only: unlike
+``run_host``'s, they do not close on a device sync. It also records a
+plan-audit row per superstep
+(``obs.explain``: the in-effect plan re-priced with the machine model of
+``device``) and a tier-occupancy sample per superstep (``obs.memwatch``:
+the HBM estimate for the resident super-partition, the store's DRAM and
+spill bytes).
 """
 from __future__ import annotations
 
@@ -101,7 +108,7 @@ from repro_torch.core.relations import (GlobalState, MsgRel, VertexRel,
                                         init_gs)
 from repro_torch.core.superstep import EngineConfig, make_superstep
 from repro_torch.kernels import backend as kbackend
-from repro_torch.obs import trace
+from repro_torch.obs import explain, memwatch, trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.storage import TieredStore
 
@@ -621,6 +628,28 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
         ec = dataclasses.replace(ec, ooc_collect=True,
                                  frontier_cap=ec.frontier_cap or
                                  max(Np // 2, 1))
+        if explain.enabled():
+            # plan-audit ledger: the shadow auditor re-prices the
+            # in-effect plan per superstep with the machine model of
+            # ``device`` (static resumes without graph statistics stay
+            # decision-log-only)
+            from repro_torch.planner.cost import machine_for
+            explain.attach(
+                program,
+                vert=shape_vert if resume_from is None else None,
+                g=(controller.g if controller is not None
+                   else graph_stats),
+                plan=plan,
+                machine=(controller.machine if controller is not None
+                         else machine_for(device)),
+                space_kw=(_OOC_AUTO_SPACE if auto_space is None
+                          else auto_space))
+        if memwatch.enabled():
+            memwatch.configure(
+                ec=ec, Np=Np, Ep=shape_vert.edge_src.shape[1],
+                value_dims=program.value_dims,
+                msg_dims=program.msg_dims,
+                budget_bytes=memory_budget_bytes)
         step = make_superstep(program, plan, ec)
         seen_widths = set()   # inbox widths this `step` has already run
         window = max(int(prefetch_depth), 1) if stream else 1
@@ -776,7 +805,11 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
             del up
             # part0 = this block's first GLOBAL partition index, so
             # resurrect mints correct vids past super-partition 0
-            with trace.annotate("step_enqueue", "compute"):
+            # (the inner ``superstep`` span is the one the reference's
+            # jitted step wrapper records around each call; both time
+            # the enqueue, with no device sync)
+            with trace.annotate("step_enqueue", "compute"), \
+                    trace.annotate("superstep", "compute"):
                 v2, buckets, g2, cnts, mut = step(vpart, msg, gs_cell[0],
                                                   part0=q * sp)
             edges_changed = (v2.edge_dst is not vpart.edge_dst
@@ -1079,6 +1112,15 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
                 pager_resident_bytes=pool_now["resident_bytes"],
                 pager_peak_bytes=pool_now["peak_resident_bytes"])
             stats.append(rec.as_dict())
+            if explain.enabled():
+                # audit the plan that EXECUTED this superstep (a switch
+                # below only takes effect on the next one)
+                explain.superstep(rec, plan=plan,
+                                  bucket_cap=ec.bucket_cap)
+            if memwatch.enabled():
+                # tier snapshot at the superstep boundary: only `sp`
+                # partitions are device-resident under the stream
+                memwatch.sample(i, store=store, resident_parts=sp)
             if trace.enabled():
                 trace.counter("active", active)
                 trace.counter("messages", msg_count)

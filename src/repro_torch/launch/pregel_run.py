@@ -1,0 +1,347 @@
+"""Command-line entry point of the port: one Pregel job on one device,
+with the reference's flags and output lines (``repro.launch.pregel_run``)
+for its single-device modes.
+
+    PYTHONPATH=src python -m repro_torch.launch.pregel_run \\
+        --algo sssp --dataset webmap-tiny --parts 4 --auto-plan --explain
+
+The job runs on the card unless ``--device cpu`` asks for the CPU.
+Modes: in memory (``run_host``) and ``--ooc`` (``run_out_of_core``, the
+graph loaded on the host and streamed through the device), each with
+checkpoints and supervised recovery (``--checkpoint-every``,
+``--checkpoint-dir``, ``--recover``; ``$REPRO_FAULT_PLAN`` arms the
+chaos harness before the run) and the observability outputs
+(``--trace`` Chrome JSON, ``--report`` run report, ``--explain`` plan
+audit, ``--metrics``, ``--progress``). ``--dryrun``, ``--devices N > 1``
+and ``--mesh host|production`` belong to the multi-device slice and stop
+with an error that says so.
+
+``main(argv)`` parses and runs; ``run(args, graph=(edges, n))`` runs
+parsed arguments on a graph the caller already holds (``--dataset`` then
+only labels the output) and returns the ``RunResult`` and the report
+document (None without ``--report``/``--explain``).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+from repro_torch.core.plan import KERNEL_IMPLS
+
+ALGOS = ("pagerank", "sssp", "cc")
+MULTI_DEVICE = ("belongs to the port's multi-device slice (ROADMAP "
+                "Queue 1, item 5), not ported yet")
+
+
+def make_program(algo: str, n: int):
+    from repro_torch.graph import SSSP, ConnectedComponents, PageRank
+    if algo == "pagerank":
+        return PageRank(n, iterations=15)
+    if algo == "sssp":
+        return SSSP(source=0)
+    return ConnectedComponents()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.pregel_run",
+        description="Run one Pregel job on one device (the card unless "
+                    "--device cpu).")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="abstract-mesh lowering; " + MULTI_DEVICE)
+    ap.add_argument("--algo", default="pagerank", choices=ALGOS)
+    ap.add_argument("--mesh", default=None,
+                    choices=["host", "production"],
+                    help="mesh source of the sharded driver, which "
+                         + MULTI_DEVICE)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="shard the job over this many devices; "
+                         + MULTI_DEVICE)
+    ap.add_argument("--join", default="full_outer")
+    ap.add_argument("--groupby", default="scatter")
+    ap.add_argument("--connector", default="partitioning")
+    ap.add_argument("--sender-combine", type=int, default=1)
+    ap.add_argument("--partition", default="hash",
+                    choices=["hash", "range"])
+    ap.add_argument("--kernel-impl", default="auto",
+                    choices=list(KERNEL_IMPLS),
+                    help="the hot-path kernels (kernels/backend.py): "
+                         "auto = the CUDA kernels on the card and the "
+                         "plain torch versions on the CPU; cuda or ref "
+                         "insist on one and raise on the other device")
+    ap.add_argument("--auto-plan", action="store_true",
+                    help="let the cost-based planner pick (and mid-run "
+                         "re-pick) the plan, with the machine model of "
+                         "--device")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the job runs (default: the card)")
+    ap.add_argument("--dataset", default="webmap-tiny")
+    ap.add_argument("--parts", type=int, default=4)
+    ap.add_argument("--ooc", action="store_true",
+                    help="run out-of-core: the graph on the host, "
+                         "super-partitions of --budget-partitions streamed "
+                         "through the device")
+    ap.add_argument("--budget-partitions", type=int, default=0,
+                    help="device-memory budget in partitions for --ooc "
+                         "(default: the largest divisor of parts that is "
+                         "at most parts // 2)")
+    ap.add_argument("--stream", dest="stream", action="store_true",
+                    default=True,
+                    help="pipeline the --ooc super-partition stream "
+                         "(default)")
+    ap.add_argument("--no-stream", dest="stream", action="store_false",
+                    help="synchronous --ooc loop: upload, step, block, "
+                         "collect per super-partition")
+    ap.add_argument("--barrier-free", dest="barrier_free",
+                    action="store_true", default=True,
+                    help="barrier-free superstep pipeline (default): "
+                         "per-destination inbox rebuild and mutation "
+                         "apply, overlapped with the next superstep")
+    ap.add_argument("--no-barrier-free", dest="barrier_free",
+                    action="store_false",
+                    help="keep the global superstep barrier")
+    ap.add_argument("--io-threads", type=int, default=None,
+                    help="background page-I/O threads of the --ooc disk "
+                         "tier (default: 1 with --disk-dir, else 0)")
+    ap.add_argument("--readahead-pages", type=int, default=8,
+                    help="max pages the I/O engine prefetches a tick")
+    ap.add_argument("--disk-dir", default=None,
+                    help="--ooc disk tier: spill directory of the page "
+                         "cache (HBM <-> DRAM <-> disk)")
+    ap.add_argument("--memory-budget-bytes", type=int, default=None,
+                    help="--ooc disk tier: host-DRAM byte budget of the "
+                         "page cache (requires --disk-dir)")
+    ap.add_argument("--eviction", default="lru", choices=["lru", "mru"],
+                    help="--ooc disk tier page replacement")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot the run every N supersteps into "
+                         "--checkpoint-dir")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for checkpoints (npz in memory, page "
+                         "snapshots for --ooc)")
+    ap.add_argument("--recover", action="store_true",
+                    help="run under the recovery supervisor: a "
+                         "recoverable failure restores the latest VALID "
+                         "checkpoint onto the surviving workers and "
+                         "replays")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="recovery attempts before the failure is "
+                         "forwarded (default 3)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the run's span timeline as Chrome "
+                         "trace-event JSON to PATH (validate with "
+                         "python -m repro_torch.obs.export)")
+    ap.add_argument("--progress", action="store_true",
+                    help="print one line per superstep")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the per-superstep metrics registry "
+                         "snapshots")
+    ap.add_argument("--report", default=None, metavar="PATH",
+                    help="write the pregelix-run-report/v1 JSON (plan "
+                         "audit, decisions, tier occupancy) to PATH; "
+                         "validate or diff with python -m "
+                         "repro_torch.obs.report")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the plan-audit ledger after the run")
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """Parse and check the arguments; stops (``ap.error``) on a mode of
+    the multi-device slice and on inconsistent flags."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.dryrun:
+        ap.error("--dryrun " + MULTI_DEVICE)
+    if args.devices > 1:
+        ap.error(f"--devices {args.devices} " + MULTI_DEVICE)
+    if args.mesh is not None:
+        ap.error(f"--mesh {args.mesh} " + MULTI_DEVICE)
+    if args.recover and not args.checkpoint_dir:
+        ap.error("--recover needs --checkpoint-dir (and a nonzero "
+                 "--checkpoint-every) so a failure has a snapshot "
+                 "to restore")
+    if args.ooc:
+        if args.budget_partitions and args.parts % args.budget_partitions:
+            ap.error(f"--budget-partitions {args.budget_partitions} must "
+                     f"divide --parts {args.parts}")
+        if args.memory_budget_bytes and not args.disk_dir:
+            ap.error("--memory-budget-bytes requires --disk-dir "
+                     "(a budget needs somewhere to spill)")
+    if args.device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            ap.error("no CUDA device: pass --device cpu to run on the CPU")
+    return args
+
+
+def run(args: argparse.Namespace, graph: Optional[tuple] = None):
+    """Run the job ``args`` describes and print the reference's lines.
+    ``graph=(edges, n)`` stands in for the ``--dataset`` lookup. ->
+    (RunResult, report dict or None)."""
+    from repro_torch.core import PhysicalPlan, gather_values, load_graph
+    from repro_torch.obs import (explain, fmt_plan, memwatch,
+                                 progress_line, report, trace,
+                                 write_chrome_trace)
+    from repro_torch.runtime import faults
+
+    plan = "auto" if args.auto_plan else PhysicalPlan(
+        join=args.join, groupby=args.groupby, connector=args.connector,
+        sender_combine=bool(args.sender_combine),
+        partition=args.partition, kernel_impl=args.kernel_impl)
+    if graph is None:
+        from repro_torch.graph import DATASETS
+        graph = DATASETS[args.dataset]()
+    edges, n = graph
+    program = make_program(args.algo, n)
+    vert = load_graph(edges, n, P=args.parts, value_dims=program.value_dims,
+                      device="cpu" if args.ooc else args.device)
+    faults.install_from_env()   # REPRO_FAULT_PLAN: the chaos harness
+    ft_kw = dict(checkpoint_every=args.checkpoint_every,
+                 checkpoint_dir=args.checkpoint_dir,
+                 recover=args.recover, max_retries=args.max_retries)
+    # pin the kernel dispatch inside the auto-planner's search space (a
+    # concrete plan already carries it from the knob)
+    kimp = (args.kernel_impl if args.auto_plan
+            and args.kernel_impl != "auto" else None)
+    if args.trace:
+        trace.start()
+    if args.report or args.explain:
+        explain.start()
+        memwatch.start()
+    show = None
+    if args.progress:
+        plan_tag = None if plan == "auto" else plan
+
+        def show(i, rec):
+            print(progress_line(rec, plan_tag, n_vertices=n), flush=True)
+    try:
+        if args.ooc:
+            from repro_torch.core.ooc import run_out_of_core
+            budget = args.budget_partitions or next(
+                # the largest divisor of parts that is <= parts // 2
+                b for b in range(max(args.parts // 2, 1), 0, -1)
+                if args.parts % b == 0)
+            res = run_out_of_core(
+                vert, program, plan, budget_partitions=budget,
+                max_supersteps=40, kernel_impl=kimp, stream=args.stream,
+                barrier_free=args.barrier_free,
+                memory_budget_bytes=args.memory_budget_bytes,
+                disk_dir=args.disk_dir, eviction=args.eviction,
+                io_threads=args.io_threads,
+                readahead_pages=args.readahead_pages, on_superstep=show,
+                device=args.device, **ft_kw)
+            tier = (f", disk tier at {args.disk_dir} "
+                    f"[{args.eviction}]" if args.disk_dir else "")
+            exe = ("synchronous" if not args.stream else
+                   "barrier-free" if args.barrier_free else "streaming")
+            mode = (f"out-of-core (budget={budget}/{args.parts} "
+                    f"partitions, {exe}{tier})")
+        else:
+            from repro_torch.core import run_host
+            host_cb = ((lambda i, v, m, g, rec: show(i, rec))
+                       if show is not None else None)
+            res = run_host(vert, program, plan, max_supersteps=40,
+                           kernel_impl=kimp, on_superstep=host_cb, **ft_kw)
+            mode = "in-memory"
+    except BaseException:
+        # leave no recorder running behind a failed job
+        trace.stop()
+        explain.stop()
+        memwatch.stop()
+        raise
+    vals = gather_values(res.vertex, n)
+    print(f"{args.algo} on {args.dataset} [{mode}, {args.device}]: "
+          f"{res.supersteps} supersteps, {res.wall_s:.2f}s wall")
+    for ev in res.recovery or ():
+        print(f"recovery #{ev.get('attempt')}: restored from "
+              f"{ev.get('restored_from') or 'initial relations'} onto "
+              f"{ev.get('healthy_workers')} worker(s) "
+              f"(blacklist {ev.get('blacklist') or '[]'}) after "
+              f"{ev.get('error')}")
+    if args.ooc and args.disk_dir:
+        recs = [s for s in res.stats if "cache_hit_rate" in s]
+        if recs:
+            hr = sum(s["cache_hit_rate"] for s in recs) / len(recs)
+            sb = sum(s["spill_read_bytes"] + s["spill_write_bytes"]
+                     for s in recs)
+            qd = max((s.get("io_queue_depth", 0) for s in recs),
+                     default=0)
+            print(f"disk tier: mean page hit rate {hr:.2f}, "
+                  f"{sb / 2**20:.1f} MiB spilled, "
+                  f"io queue depth peak {qd}")
+    if args.ooc:
+        recs = [s for s in res.stats if "readiness_stall_s" in s]
+        if recs:
+            stall = sum(s["readiness_stall_s"] for s in recs)
+            pipe = ("barrier-free" if args.barrier_free and args.stream
+                    else "barrier")
+            print(f"readiness stall: {stall:.3f}s total over "
+                  f"{len(recs)} supersteps ({pipe})")
+    if args.auto_plan:
+        switches = [s for s in res.stats
+                    if s.get("event") == "plan-switch"]
+        print(f"final plan: join={res.plan.join} "
+              f"groupby={res.plan.groupby} "
+              f"connector={res.plan.connector} "
+              f"sender_combine={res.plan.sender_combine} "
+              f"storage={res.plan.storage}; "
+              f"{len(switches)} plan switch(es)")
+        for s in switches:
+            print(f"  superstep {s['superstep']}: -> join={s['join']} "
+                  f"connector={s['connector']} "
+                  f"sender_combine={s['sender_combine']} "
+                  f"storage={s.get('storage', '-')}")
+    print("per-superstep:", [round(s["wall_s"], 3) for s in res.stats
+                             if "wall_s" in s])
+    if args.metrics:
+        for s in res.stats:
+            m = s.get("metrics")
+            if not m:
+                continue
+            print(f"metrics @ superstep {s.get('superstep', '?')}:")
+            for name in sorted(m):
+                snap = m[name]
+                if isinstance(snap, dict):   # histogram percentiles
+                    body = "  ".join(
+                        f"{k}={v:.4g}" for k, v in snap.items())
+                else:
+                    body = f"{snap:.6g}"
+                print(f"  {name:<22} {body}")
+    rep = None
+    if args.report or args.explain:
+        aud = explain.stop()
+        mem = memwatch.stop()
+        rep = report.build_report(
+            stats=res.stats, explain=aud, memwatch=mem,
+            recovery=res.recovery,
+            meta={"algo": args.algo, "dataset": args.dataset,
+                  "mode": mode, "device": args.device,
+                  "parts": args.parts, "plan": fmt_plan(res.plan),
+                  "supersteps": res.supersteps, "wall_s": res.wall_s})
+        if args.explain:
+            print(report.to_markdown(rep))
+        if args.report:
+            report.write_report(args.report, rep)
+            errs = report.validate_report(rep)
+            print(f"report: {args.report} "
+                  f"({len(rep['supersteps'])} supersteps, "
+                  f"{len(rep['decisions'])} decisions, "
+                  f"{len(errs)} schema violation(s))")
+    if args.trace:
+        summary = write_chrome_trace(args.trace, trace.stop())
+        print(f"trace: {args.trace} "
+              f"({summary['spans']} spans on "
+              f"{summary['span_threads']} thread(s); load in "
+              f"chrome://tracing or ui.perfetto.dev)")
+    print("value head:", vals[:5, 0])
+    return res, rep
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

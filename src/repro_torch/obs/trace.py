@@ -7,11 +7,10 @@ dispatcher/collector loop plus background I/O-engine worker threads —
 whose behavior a flat dict cannot explain. This module records *spans*
 (nested, timestamped intervals categorized by pipeline leg) plus instant
 and counter events, into PER-THREAD buffers so recording never contends
-on a lock in the steady state; ``Tracer.drain`` hands the buffers out,
-one track per thread, which is what makes the dispatcher / collector /
-io-engine overlap — and the readiness-stall gap — visible on a timeline
-(the Chrome trace exporter of the reference comes with the port's
-observability slice).
+on a lock in the steady state; ``obs.export`` turns the buffers into
+Chrome trace-event JSON with one track per thread, which is what makes
+the dispatcher / collector / io-engine overlap — and the readiness-stall
+gap — visible on a timeline.
 
 Design constraints:
 

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.plan import PhysicalPlan
 from repro_torch.core.relations import MsgRel
+from repro_torch.obs import explain
 from repro_torch.planner.cost import (H100_MACHINE, GraphStats,
                                       MachineModel, Observation, estimate)
 from repro_torch.planner.optimizer import choose, rank
@@ -135,9 +136,12 @@ class AdaptiveController:
                                          refresh=True)
         self._shapes_dirty = False
         self._last_recal = superstep
-        return {"k_compute": self.machine.k_compute,
-                "k_scatter": self.machine.k_scatter,
-                "sort_pass_frac": self.machine.sort_pass_frac}
+        constants = {"k_compute": self.machine.k_compute,
+                     "k_scatter": self.machine.k_scatter,
+                     "sort_pass_frac": self.machine.sort_pass_frac}
+        if explain.enabled():
+            explain.decision(superstep, "recalibrate", **constants)
+        return constants
 
     def _update_stall_ewma(self, rec: SuperstepStats):
         """Fold a steady superstep's measured readiness stall into the
@@ -259,6 +263,17 @@ class AdaptiveController:
             self._last_switch = rec.superstep
             self._want, self._streak = None, 0
             self.switches.append((rec.superstep, old, best))
+            if explain.enabled():
+                # the losing candidates' prices: the full table the
+                # controller just ranked, under the same observation
+                from repro_torch.obs.progress import fmt_plan
+                explain.decision(
+                    rec.superstep, "replan",
+                    **{"from": fmt_plan(old)}, to=fmt_plan(best),
+                    current_s=float(cur_s),
+                    candidates=[{"plan": fmt_plan(p),
+                                 "seconds": float(c.seconds(self.machine))}
+                                for p, c in ranked])
             return best
         return None
 

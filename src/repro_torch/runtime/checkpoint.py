@@ -41,6 +41,7 @@ import torch
 from repro_torch.core.relations import (N_OVERFLOW, GlobalState, MsgRel,
                                         VertexRel, gs_from_numpy,
                                         msgs_from_numpy, vertex_from_numpy)
+from repro_torch.obs import trace
 from repro_torch.storage.spillfile import page_checksum, verify_page_file
 
 # the host-resident relations an OOC checkpoint carries (one spill page
@@ -87,25 +88,27 @@ def save_checkpoint(ckpt_dir: str, superstep: int, vert: VertexRel,
     d.mkdir(parents=True, exist_ok=True)
     path = d / f"ckpt_{superstep:06d}.npz"
     tmp = d / f".tmp_{superstep:06d}.npz"
-    np.savez_compressed(
-        tmp,
-        vid=_np(vert.vid), halt=_np(vert.halt), value=_np(vert.value),
-        edge_src=_np(vert.edge_src), edge_dst=_np(vert.edge_dst),
-        edge_val=_np(vert.edge_val),
-        m_dst=_np(msg.dst), m_pay=_np(msg.payload), m_val=_np(msg.valid),
-        gs_halt=_np(gs.halt), gs_agg=_np(gs.aggregate),
-        gs_step=_np(gs.superstep), gs_overflow=_np(gs.overflow),
-        gs_active=_np(gs.active_count), gs_msgs=_np(gs.msg_count))
-    os.replace(tmp, path)  # atomic payload publish
-    # the crash-mid-checkpoint window: payload visible, no manifest
-    _faults().hit("checkpoint.commit", path.name)
-    algo, crc = _file_crc(path)
-    _write_commit(d / f"{path.name}.COMMIT",
-                  {"superstep": int(superstep), "file": path.name,
-                   "bytes": path.stat().st_size,
-                   "crc_algo": algo, "crc": crc,
-                   "saved_at": time.time()})
-    (d / "LATEST").write_text(path.name)
+    with trace.span("save_checkpoint", "checkpoint"):
+        np.savez_compressed(
+            tmp,
+            vid=_np(vert.vid), halt=_np(vert.halt), value=_np(vert.value),
+            edge_src=_np(vert.edge_src), edge_dst=_np(vert.edge_dst),
+            edge_val=_np(vert.edge_val),
+            m_dst=_np(msg.dst), m_pay=_np(msg.payload),
+            m_val=_np(msg.valid),
+            gs_halt=_np(gs.halt), gs_agg=_np(gs.aggregate),
+            gs_step=_np(gs.superstep), gs_overflow=_np(gs.overflow),
+            gs_active=_np(gs.active_count), gs_msgs=_np(gs.msg_count))
+        os.replace(tmp, path)  # atomic payload publish
+        # the crash-mid-checkpoint window: payload visible, no manifest
+        _faults().hit("checkpoint.commit", path.name)
+        algo, crc = _file_crc(path)
+        _write_commit(d / f"{path.name}.COMMIT",
+                      {"superstep": int(superstep), "file": path.name,
+                       "bytes": path.stat().st_size,
+                       "crc_algo": algo, "crc": crc,
+                       "saved_at": time.time()})
+        (d / "LATEST").write_text(path.name)
     return str(path)
 
 
@@ -127,12 +130,14 @@ def save_ooc_checkpoint(ckpt_dir: str, superstep: int, store, gs, *,
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    for nm in OOC_RELATIONS:
-        for s in range(store.n_sp):
-            store.export_page((nm, s), tmp / f"{nm}_{s}.npy")
-    for nm in OOC_INBOX:
-        for q in range(store.n_sp):
-            store.export_page((nm, inbox_gen, q), tmp / f"{nm}_{q}.npy")
+    with trace.span("export_pages", "checkpoint"):
+        for nm in OOC_RELATIONS:
+            for s in range(store.n_sp):
+                store.export_page((nm, s), tmp / f"{nm}_{s}.npy")
+        for nm in OOC_INBOX:
+            for q in range(store.n_sp):
+                store.export_page((nm, inbox_gen, q),
+                                  tmp / f"{nm}_{q}.npy")
     np.savez(tmp / "gs.npz",
              halt=_np(gs.halt), aggregate=_np(gs.aggregate),
              superstep=_np(gs.superstep), overflow=_np(gs.overflow),

@@ -43,8 +43,8 @@ sites by ``repro_torch.storage``, ``checkpoint.commit`` by both savers,
 ``sharded.exchange`` comes with the multi-device slice.
 
 ``REPRO_FAULT_PLAN`` is either a path to a plan JSON or the JSON itself
-(starts with ``{``); ``install_from_env`` arms it (the port's CLI, which
-will call it, comes with the observability slice).
+(starts with ``{``); ``install_from_env`` arms it (the port's CLI,
+``launch/pregel_run.py``, calls it before every run).
 """
 from __future__ import annotations
 

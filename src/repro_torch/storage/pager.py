@@ -543,7 +543,7 @@ class BufferPool:
 
     def occupancy(self) -> dict:
         """Live page accounting for the memory-pressure ledger
-        (``obs.memwatch``, a later slice): resident / dirty / pinned bytes at
+        (``obs.memwatch``): resident / dirty / pinned bytes at
         this instant, under the pool lock, plus the hard budget and the
         peak watermark. Unlike ``stats()`` these are walked from the
         page table, so dirty and pinned bytes — the part of the tier an

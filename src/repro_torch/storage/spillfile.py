@@ -244,7 +244,7 @@ class SpillDir:
     def bytes_on_disk(self) -> int:
         """Bytes currently occupying the SSD tier (every page file in
         the directory). A directory walk, so only sampled at superstep
-        boundaries (``obs.memwatch``, a later slice); temp files
+        boundaries (``obs.memwatch``); temp files
         mid-``replace`` are skipped."""
         total = 0
         try:

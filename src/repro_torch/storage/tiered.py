@@ -152,8 +152,8 @@ class TieredStore:
 
     def occupancy(self) -> dict:
         """Instantaneous tier occupancy for the memory-pressure ledger
-        (``obs.memwatch``, a later slice): the pool's DRAM page accounting plus
-        the bytes actually occupying the spill directory."""
+        (``obs.memwatch``): the pool's DRAM page accounting plus the bytes
+        actually occupying the spill directory."""
         d = self.pool.occupancy()
         d["spilling"] = self.spilling
         d["spill_bytes"] = (self.spill.bytes_on_disk()

@@ -81,3 +81,35 @@ def test_phase_13_on_the_cpu():
     assert auto["switches"] and auto["final_plan"].startswith("left_outer")
     assert "busy" not in out and "peak_allocated_bytes" not in \
         out["pagerank_big"]
+
+
+def test_phase_14_on_the_cpu():
+    """Phase 14 (the port's CLI in this process) on the CPU at
+    graph500-10 for both graphs, with what its card run takes from phases
+    3, 12 and 13 made here: phase 3's run_host stats, the switch
+    supersteps of phase 12's auto SSSP and phase 13's streamed
+    out-of-core PageRank with its peak pager bytes."""
+    from repro_torch.core import load_graph
+    edges, n = graph500(SCALE)
+    phase3 = {}
+    values = cs.run_main_path(edges, n, "cpu", phase3)
+    pr_ref, hops = cs.check_main_path(values, edges, n)
+    big = (edges, n, values, pr_ref, hops)
+    _, auto = cs.planned_run(SSSP(source=0), edges, n, 1, "cpu")
+    vert = load_graph(edges, n, cs.OOC_P, value_dims=2, device="cpu")
+    res, _ = cs.ooc_run(PageRank(n, iterations=15), vert, "cpu")
+    streamed = gather_values(res.vertex, n)[:, 0]
+    peak = max(s["pager_peak_bytes"] for s in res.stats
+               if "pager_peak_bytes" in s)
+    out = cs.cli_phase(big, big, phase3=phase3,
+                       sssp_switches=[sw[0] for sw in auto["switches"]],
+                       ooc_streamed=streamed, pager_peak=peak,
+                       device="cpu", scale=SCALE, small_scale=SCALE)
+    pr = out["pagerank"]
+    assert pr["supersteps"] == 15 and pr["superstep_spans"] >= 15
+    assert pr["summary"]["supersteps"] == 15
+    assert "max_memory_allocated" not in pr
+    assert out["sssp"]["plan_switches_metric"] == len(auto["switches"])
+    assert out["ooc_pagerank"]["fault_spans"] > 0
+    assert out["recover_sssp"]["healthy_workers"] == 3
+    assert out["recover_sssp"]["injected_fired"] == 1

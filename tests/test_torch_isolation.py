@@ -28,7 +28,10 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.launch.op_cost", "repro_torch.core.ooc",
            "repro_torch.storage.pager", "repro_torch.storage.io_engine",
            "repro_torch.storage.tiered", "repro_torch.obs",
-           "repro_torch.obs.trace", "repro_torch.obs.metrics"]
+           "repro_torch.obs.trace", "repro_torch.obs.metrics",
+           "repro_torch.obs.progress", "repro_torch.obs.explain",
+           "repro_torch.obs.memwatch", "repro_torch.obs.report",
+           "repro_torch.obs.export", "repro_torch.launch.pregel_run"]
 
 
 def test_imports_with_jax_unimportable():
@@ -76,6 +79,30 @@ def test_storage_threads_make_no_device_call():
     tracer is started with torch_annotations=True.)"""
     files = sorted((PORT / "storage").glob("*.py")) + \
         [PORT / "obs" / "metrics.py"]
+    for f in files:
+        tops = {n.split(".")[0] for n in _imports(f)}
+        assert "torch" not in tops, f
+
+
+def test_obs_package_imports_no_torch():
+    """``repro_torch.obs`` (the package the storage modules import
+    ``trace`` from) loads without torch: the audit, the memory ledger,
+    the report, the exporter and the progress line are framework-free
+    copies, and the audit's planner imports wait for a run."""
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "import repro_torch.obs\n"
+            "from repro_torch.obs import (explain, memwatch, report, trace,"
+            " write_chrome_trace, fmt_plan, progress_line)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    files = [PORT / "obs" / f"{m}.py" for m in
+             ("progress", "explain", "memwatch", "report", "export")]
     for f in files:
         tops = {n.split(".")[0] for n in _imports(f)}
         assert "torch" not in tops, f
