@@ -160,11 +160,33 @@ and never prints its last line):
    failure after superstep 5: one recovery line, the distances of an
    uninterrupted CLI run, the fault in the report's faults section.
 
+15. the sharded driver (repro_torch.core.sharded.run_sharded), every run
+   on one RankPool of 2 spawned ranks on the card, the counts set to 0
+   before each run and read after it (the ranks' launches, summed and
+   each rank's): (a) one rank over NCCL at graph500-<scale>, P = 4:
+   PageRank within rtol 1e-5 of phase 3's ranks (bit equality printed)
+   and 1e-4 of scipy, SSSP equal to scipy's hop counts, the fold and the
+   gather launched in the rank. On phase 11's graph (graph500-20; at
+   graph500-22 the script passed 968 s of its 1200), P = 8, loaded once:
+   (b) two ranks sharing the card over gloo (NCCL refuses two ranks on
+   one GPU): PageRank within rtol 1e-5 and SSSP equal to run_host at P
+   = 8 on the card, the kernels launched in both ranks; (c) two ranks
+   out of core (2 partitions resident a rank, the DRAM tier): PageRank
+   within rtol 1e-5 of phase 11's run_host and 1e-4 of scipy; (d) SSSP
+   under recover=True, a snapshot every 5 supersteps and one worker
+   failure at superstep 5 raised in the ranks: one recovery onto 1 rank
+   (NCCL), scipy's distances; (e) the
+   CLI with --devices 2 on webmap-large: one exchange line and the
+   single-device CLI run's distances. Prints for each the transport,
+   supersteps, median superstep s, run s, job s, the median exchange
+   bytes and stall a superstep and each rank's peak device bytes.
+
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
-kernels, on phase 12's, 13's and 14's runs), max abs err, kernel / plain /
-bound / library ms. The last line is {"ok": true, "device": {...}}.
+kernels, on phase 12's, 13's, 14's and 15's runs), max abs err, kernel /
+plain / bound / library ms. The last line is {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -1699,15 +1721,16 @@ FAULT_PLAN = {"seed": 0, "faults": [{"site": "superstep", "kind": "worker",
 # audit table stay in the run report and the trace)
 CLI_LINES = ("pagerank on", "sssp on", "cc on", "recovery #", "final plan",
              "  superstep", "disk tier", "readiness stall", "report:",
-             "trace:", "value head")
+             "trace:", "value head", "exchange:")
 
 
-def cli(label: str, argv, device, graph=None):
+def cli(label: str, argv, device, graph=None, pool=None, phase=14):
     """One run of the port's CLI in this process
-    (``repro_torch.launch.pregel_run.run``), the counts set to 0 just
-    before it and read just after, its standard output captured (its
-    summary lines are logged). -> (RunResult, report dict or None, stats
-    dict, output text)."""
+    (``repro_torch.launch.pregel_run.run``; ``pool`` a RankPool for the
+    sharded modes), the counts set to 0 just before it and read just
+    after (a sharded run's launches are its ranks'), its standard output
+    captured (its summary lines are logged). -> (RunResult, report dict
+    or None, stats dict, output text)."""
     import contextlib
     import io
     import torch
@@ -1720,19 +1743,23 @@ def cli(label: str, argv, device, graph=None):
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        res, rep = run(args, graph=graph)
+        res, rep = run(args, graph=graph, pool=pool)
     sync()
     run_s = time.perf_counter() - t0
     text = buf.getvalue()
     for line in text.splitlines():
         if line.startswith(CLI_LINES):
-            log(f"phase 14 {label}: {line}")
+            log(f"phase {phase} {label}: {line}")
     walls = [s["wall_s"] for s in res.stats if "wall_s" in s]
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    for w in res.workers:
+        for k, v in w["launches"].items():
+            launches[k] += v
     # run_s: the CLI call (graph load, run, reports); job_s: the driver's
     return res, rep, dict(
         supersteps=res.supersteps, run_s=run_s, job_s=res.wall_s,
         superstep_median_s=statistics.median(walls),
-        launches={k: c.launches for k, c in COUNTERS.items()}), text
+        launches=launches), text
 
 
 def check_report(label: str, rep: dict, rows: int) -> dict:
@@ -1960,6 +1987,249 @@ def cli_phase(big, small, *, phase3: dict, sssp_switches, ooc_streamed,
         out["recover_sssp"] = st
         log(f"phase 14: recovered SSSP {json.dumps(st)}")
         del res, rep
+        free(device)
+    return out
+
+
+# ------------------------------------------------------------- phase 15
+
+SHARD_P = 8          # partitions of the two-rank runs
+SHARD_RANKS = 2      # ranks of phase 15's pool (both on the one card)
+
+
+def sharded_run(prog, vert, pool, devices, plan=None, **kw):
+    """One run_sharded of ``prog`` on ``pool``'s ranks, the counts set to
+    0 just before it and read just after (the ranks' launches, summed,
+    and each rank's). -> (RunResult, stats dict): the transport,
+    supersteps, median superstep s, run s (the call: the blocks to the
+    ranks and back), job s (the driver's), the median exchange bytes and
+    stall a superstep, each rank's peak device bytes."""
+    import torch
+    from repro_torch.core.sharded import run_sharded
+    from repro_torch.kernels import COUNTERS
+    sync = torch.cuda.synchronize if vert.vid.is_cuda else (lambda: None)
+    sync()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = run_sharded(vert, prog, plan or prog.suggested_plan,
+                      devices=devices, pool=pool,
+                      max_supersteps=kw.pop("max_supersteps", 100), **kw)
+    sync()
+    run_s = time.perf_counter() - t0
+    recs = [s for s in res.stats if "wall_s" in s]
+    launches = {k: c.launches for k, c in COUNTERS.items()}
+    for w in res.workers:
+        for k, v in w["launches"].items():
+            launches[k] += v
+    st = dict(
+        transport=recs[-1]["transport"], n_workers=recs[-1]["n_workers"],
+        supersteps=res.supersteps, run_s=run_s, job_s=res.wall_s,
+        superstep_median_s=statistics.median(s["wall_s"] for s in recs),
+        exchange_bytes_per_superstep=statistics.median(
+            s["exchange_bytes"] for s in recs),
+        exchange_stall_median_s=statistics.median(
+            s["exchange_stall_s"] for s in recs),
+        rank_peak_bytes=[w["peak_bytes"] for w in res.workers],
+        rank_launches=[w["launches"] for w in res.workers],
+        events=[s["event"] for s in res.stats if "event" in s],
+        launches=launches)
+    if res.recovery:
+        st["recovery"] = [{k: e[k] for k in ("restored_from",
+                                             "healthy_workers",
+                                             "blacklist")}
+                          for e in res.recovery]
+    return res, st
+
+
+def need_rank_launches(what: str, st: dict, names, device):
+    """Every rank of a sharded run on the card launched ``names``."""
+    if device != "cuda":
+        return
+    for i, got in enumerate(st["rank_launches"]):
+        for k in names:
+            if got[k] <= 0:
+                raise AssertionError(f"kernel {k} never launched in rank "
+                                     f"{i} of {what}")
+
+
+def sharded_phase(big, small, *, device="cuda", fail_at: int = 5,
+                  dataset: str = "webmap-large") -> dict:
+    """Phase 15: run_sharded over torch.distributed ranks on the card,
+    all from one RankPool of SHARD_RANKS spawned ranks. ``big`` and
+    ``small`` are graph_and_references tuples (phase 3's graph with its
+    P = 4 run_host values, and phase 11's). (a) one rank over NCCL on
+    ``big`` at P = 4: PageRank within rtol 1e-5 of phase 3's ranks (bit
+    equality printed) and 1e-4 of scipy, SSSP equal to scipy, the fold
+    and the gather launched in the rank. On ``small`` at P = 8, loaded
+    once: (b) two ranks sharing the card over gloo: PageRank within
+    rtol 1e-5 and SSSP equal to run_host at P = 8 on the card; (c) two
+    ranks out of core, 2 partitions resident a rank, the DRAM tier:
+    PageRank within rtol 1e-5 of phase 11's run_host and 1e-4 of scipy;
+    (d) SSSP under recover=True with a snapshot every ``fail_at``
+    supersteps and one worker failure at superstep ``fail_at`` raised in
+    the ranks: one recovery onto 1 rank (NCCL), distances equal scipy's.
+    (e) the CLI with --devices 2 on ``dataset``: the exchange line, and
+    the single-device CLI run's distances."""
+    import torch
+    from repro_torch.core import gather_values, load_graph, run_host
+    from repro_torch.core.sharded import RankPool
+    from repro_torch.graph import SSSP, PageRank
+    from repro_torch.graph.algorithms import INF
+    from repro_torch.runtime import faults
+    cuda = device == "cuda"
+    out = {}
+
+    def hops_equal(got, hops, what):
+        want = np.where(np.isinf(hops), np.float32(INF), hops) \
+            .astype(np.float32)
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"{what}: differs from scipy at {bad} "
+                                 "vertices")
+
+    def transport(st, want, what):
+        if cuda and st["transport"] != want:
+            raise AssertionError(f"{what}: transport {st['transport']}, "
+                                 f"want {want}")
+
+    def show(label, st):
+        out[label] = st
+        log(f"phase 15: {label} {json.dumps(st)}")
+
+    t = time.perf_counter()
+    with RankPool(SHARD_RANKS, device) as pool:
+        log(f"phase 15: {SHARD_RANKS} ranks spawned in "
+            f"{time.perf_counter() - t:.2f} s")
+        # (a) one rank, NCCL, phase 3's shape
+        edges, n, values, pr_ref, hops = big
+        vert = load_graph(edges, n, P, value_dims=2, device=device)
+        res, st = sharded_run(PageRank(n, iterations=15), vert, pool, 1)
+        ranks = gather_values(res.vertex, n)[:, 0]
+        st["max_rel_err_phase3"] = rel_close(
+            ranks, values["pagerank"][:, 0], 1e-5, "sharded x1 PageRank")
+        st["bit_equal_phase3"] = bool(np.array_equal(
+            ranks, values["pagerank"][:, 0]))
+        st["max_rel_err_scipy"] = rel_close(ranks, pr_ref, 1e-4,
+                                            "sharded x1 PageRank vs scipy")
+        transport(st, "nccl", "(a) PageRank")
+        need_rank_launches("sharded x1 PageRank", st, GRAPH_KERNELS, device)
+        show("a_pagerank", st)
+        del res
+        vert = dataclasses.replace(vert, value=vert.value[..., :1].clone())
+        res, st = sharded_run(SSSP(source=0), vert, pool, 1)
+        dist = gather_values(res.vertex, n)[:, 0]
+        hops_equal(dist, hops, "sharded x1 SSSP")
+        st["equal_phase3"] = bool(np.array_equal(dist,
+                                                 values["sssp"][:, 0]))
+        transport(st, "nccl", "(a) SSSP")
+        need_rank_launches("sharded x1 SSSP", st, ("segment_combine",),
+                           device)
+        show("a_sssp", st)
+        del res, vert
+        free(device)
+
+        # (b) two ranks on the one card over gloo, P = 8
+        edges, n, values, pr_ref, hops = small
+        vert = load_graph(edges, n, SHARD_P, value_dims=2, device=device)
+        vert1 = dataclasses.replace(vert,
+                                    value=vert.value[..., :1].clone())
+        pr = PageRank(n, iterations=15)
+        ref = gather_values(run_host(vert, pr, pr.suggested_plan,
+                                     max_supersteps=100).vertex, n)[:, 0]
+        free(device)
+        res, st = sharded_run(pr, vert, pool, SHARD_RANKS)
+        ranks = gather_values(res.vertex, n)[:, 0]
+        st["max_rel_err_run_host"] = rel_close(
+            ranks, ref, 1e-5, "sharded x2 PageRank vs run_host")
+        st["bit_equal_run_host"] = bool(np.array_equal(ranks, ref))
+        transport(st, "gloo", "(b) PageRank")
+        need_rank_launches("sharded x2 PageRank", st, GRAPH_KERNELS, device)
+        show("b_pagerank", st)
+        del res, ref
+        sssp = SSSP(source=0)
+        ref = gather_values(run_host(vert1, sssp, sssp.suggested_plan,
+                                     max_supersteps=100).vertex, n)[:, 0]
+        free(device)
+        res, st = sharded_run(sssp, vert1, pool, SHARD_RANKS)
+        dist = gather_values(res.vertex, n)[:, 0]
+        if not np.array_equal(dist, ref):
+            raise AssertionError("sharded x2 SSSP differs from run_host at "
+                                 f"{int((dist != ref).sum())} vertices")
+        transport(st, "gloo", "(b) SSSP")
+        need_rank_launches("sharded x2 SSSP", st, ("segment_combine",),
+                           device)
+        show("b_sssp", st)
+        del res, ref
+        free(device)
+
+        # (c) two ranks out of core, the DRAM tier
+        res, st = sharded_run(PageRank(n, iterations=15), vert, pool,
+                              SHARD_RANKS, budget_partitions=OOC_BUDGET)
+        ranks = gather_values(res.vertex, n)[:, 0]
+        st["max_rel_err_run_host"] = rel_close(
+            ranks, values["pagerank"][:, 0], 1e-5,
+            "sharded out-of-core PageRank vs run_host")
+        st["max_rel_err_scipy"] = rel_close(
+            ranks, pr_ref, 1e-4, "sharded out-of-core PageRank vs scipy")
+        transport(st, "gloo", "(c) PageRank")
+        need_rank_launches("sharded out-of-core PageRank", st,
+                           GRAPH_KERNELS, device)
+        show("c_pagerank_ooc", st)
+        del res
+
+        # (d) recovery 2 -> 1: a worker failure at superstep fail_at
+        faults.install(faults.FaultPlan.from_json(json.dumps(
+            {"seed": 0, "faults": [dict(FAULT_PLAN["faults"][0],
+                                        superstep=fail_at,
+                                        match="sharded")]})))
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                res, st = sharded_run(SSSP(source=0), vert1, pool,
+                                      SHARD_RANKS,
+                                      checkpoint_every=fail_at,
+                                      checkpoint_dir=d, recover=True)
+            fired = faults.summary()["specs"][0]["fired"]
+        finally:
+            faults.clear()
+        hops_equal(gather_values(res.vertex, n)[:, 0], hops,
+                   "recovered sharded SSSP")
+        if len(res.recovery) != 1 or fired != 1 or \
+                res.recovery[0]["healthy_workers"] != 1:
+            raise AssertionError(f"sharded recovery: {res.recovery}, "
+                                 f"fired {fired}")
+        transport(st, "nccl", "(d) the replay")
+        need_rank_launches("recovered sharded SSSP", st,
+                           ("segment_combine",), device)
+        st["injected_fired"] = fired
+        show("d_sssp_recovered", st)
+        del res, vert, vert1
+        free(device)
+
+        # (e) the CLI, --devices 2, on its own dataset
+        argv = ["--algo", "sssp", "--parts", str(SHARD_P), "--dataset",
+                dataset]
+        one, _, _, _ = cli("single", argv, device, phase=15)
+        res, _, st, text = cli("sharded", argv + ["--devices",
+                                                  str(SHARD_RANKS)],
+                               device, pool=pool, phase=15)
+        n_large = int((one.vertex.vid >= 0).sum())
+        if not np.array_equal(gather_values(res.vertex, n_large),
+                              gather_values(one.vertex, n_large)):
+            raise AssertionError("CLI --devices 2 differs from the "
+                                 "single-device CLI run")
+        lines = [x for x in text.splitlines() if x.startswith("exchange:")]
+        if len(lines) != 1:
+            raise AssertionError(f"CLI --devices 2: exchange lines {lines}")
+        recs = [s for s in res.stats if "wall_s" in s]
+        st.update(transport=recs[-1]["transport"],
+                  n_workers=recs[-1]["n_workers"], exchange_line=lines[0],
+                  rank_peak_bytes=[w["peak_bytes"] for w in res.workers],
+                  rank_launches=[w["launches"] for w in res.workers])
+        transport(st, "gloo", "(e) the CLI")
+        need_rank_launches("CLI --devices 2", st, ("segment_combine",),
+                           device)
+        show("e_cli", st)
+        del res, one
         free(device)
     return out
 
@@ -2615,7 +2885,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-14 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-15 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -2756,6 +3026,15 @@ def card_phases(args, name: str, child) -> int:
     log(f"phase 14: {time.perf_counter() - t:.1f} s; launches by path: "
         + json.dumps(cli_paths))
     by_path.update(cli_paths)
+
+    # 15. the sharded driver over torch.distributed ranks on the card
+    t = time.perf_counter()
+    phase15 = sharded_phase(big, small)
+    shard_paths = {f"sharded_{k}": v["launches"]
+                   for k, v in phase15.items()}
+    log(f"phase 15: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps(shard_paths))
+    by_path.update(shard_paths)
     for k in kernels:
         if k["name"] in GRAPH_KERNELS:
             k["launches_by_path"] = {p: counts[k["name"]]

@@ -57,20 +57,27 @@ class RunResult:
     # resume): with the ``plan-switch`` events, every plan it went through
     initial_plan: Optional[PhysicalPlan] = None
     recovery: list = field(default_factory=list)  # supervisor events
+    # sharded runs: one dict a rank (device, transport, peak device
+    # bytes, kernel launches in that rank)
+    workers: list = field(default_factory=list)
 
 
 def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
                   kernel_impl: Optional[str] = None, auto_config=None,
-                  auto_space=None, graph_stats=None, device=None):
+                  auto_space=None, graph_stats=None, device=None,
+                  machine=None, obs0=None):
     """-> (plan, AdaptiveController | None). A PhysicalPlan passes
     through (with ``kernel_impl`` applied); plan="auto" is chosen by the
-    cost model for superstep 0, with the machine model of ``device``
-    (default: the graph's device), and, when ``adaptive``, comes with the
-    controller that re-chooses mid-run. A ``kernel_impl`` override rides
-    on the base plan, so the initial choice and every switch carry it.
-    ``graph_stats`` stands in for the vertex scan (the out-of-core resume
-    holds no VertexRel). ``AdaptiveConfig(calibrate=True)`` refits the
-    model's constants first."""
+    cost model for superstep 0, with ``machine`` or else the machine
+    model of ``device`` (default: the graph's device), and, when
+    ``adaptive``, comes with the controller that re-chooses mid-run. A
+    ``kernel_impl`` override rides on the base plan, so the initial
+    choice and every switch carry it. ``graph_stats`` stands in for the
+    vertex scan (the out-of-core resume holds no VertexRel); ``obs0``
+    seeds superstep 0's observation (the sharded driver's sharded=True
+    and n_workers, so the first pick prices the network axis).
+    ``AdaptiveConfig(calibrate=True)`` refits the model's constants
+    first."""
     if isinstance(plan, PhysicalPlan):
         if kernel_impl is not None:
             plan = dataclasses.replace(plan, kernel_impl=kernel_impl)
@@ -82,7 +89,9 @@ def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
                                      calibrate_machine, machine_for,
                                      resolve_auto_plan)
     config = auto_config or AdaptiveConfig()
-    machine = machine_for(vert.vid.device if device is None else device)
+    if machine is None:
+        machine = machine_for(vert.vid.device if device is None
+                              else device)
     g = graph_stats or GraphStats.from_vertex(vert, program)
     if config.calibrate:
         machine = calibrate_machine(program, g, machine)
@@ -90,7 +99,7 @@ def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
             if kernel_impl is not None else None)
     return resolve_auto_plan(vert, program, base=base, adaptive=adaptive,
                              config=config, machine=machine,
-                             space_kw=auto_space, g=g)
+                             space_kw=auto_space, g=g, obs0=obs0)
 
 
 def plan_gather_layout(plan: PhysicalPlan, vert: VertexRel):
@@ -108,14 +117,17 @@ def plan_gather_layout(plan: PhysicalPlan, vert: VertexRel):
 
 
 def default_engine_config(vert: VertexRel, program: VertexProgram,
-                          plan: PhysicalPlan, *,
-                          slack: float = 1.5) -> EngineConfig:
+                          plan: PhysicalPlan, *, slack: float = 1.5,
+                          axis_name=None) -> EngineConfig:
+    """Capacities for ``vert``'s (P, Np) / (P, Ep) shapes; ``axis_name``
+    (a ``connector.ShardAxis``) makes it a sharded rank's config."""
     P, Np = vert.vid.shape
     Ep = vert.edge_src.shape[1]
     return EngineConfig(n_parts=P,
                         bucket_cap=bucket_capacity(plan, Ep, Np, P,
                                                    slack=slack),
-                        frontier_cap=int(Np * plan.frontier_capacity) + 8)
+                        frontier_cap=int(Np * plan.frontier_capacity) + 8,
+                        axis_name=axis_name)
 
 
 def init_vertex_values(vert: VertexRel, program: VertexProgram,

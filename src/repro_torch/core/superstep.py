@@ -14,17 +14,25 @@ of a named monoid folds through the segment_combine kernel; the
 combined survivors are compacted straight into the bucket pack. A custom
 combine UDF folds with the sort group-by instead (the kernel takes named
 monoids only), as the reference does. Only the innermost kernel call
-changes with the device (kernels/backend.py). The exchange is the
-single-device transpose. Under ``EngineConfig.ooc_collect`` (the
-out-of-core driver, ``core/ooc.py``) the superstep runs over one
-super-partition's block of partitions and hands the pre-exchange
-buckets back instead of exchanging them; the collective transport comes
-with a later slice.
+changes with the device (kernels/backend.py).
+
+Two transports: with ``EngineConfig.axis_name`` None the exchange is
+the single-device transpose and the global state reduces locally; with
+a ``connector.ShardAxis`` the superstep runs over this rank's block of
+partitions, the exchange is ``connector.exchange_all_to_all`` and the
+counts, overflow, halt vote and aggregate are ``all_reduce``d over the
+axis's group (``core/sharded.py``). Under ``EngineConfig.ooc_collect``
+(the out-of-core drivers) the superstep runs over one super-partition's
+block and hands the pre-exchange buckets back instead of exchanging
+them; under ``exchange_apart`` (the in-memory sharded driver) it does
+the same for the messages, so the driver can time the exchange as its
+own stage.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import torch
@@ -44,12 +52,17 @@ class EngineConfig:
     bucket_cap: int              # per (src,dst)-partition bucket capacity
     mutation_cap: int = 64       # insert-proposal bucket capacity
     frontier_cap: int = 0        # left-outer frontier capacity (0 = Np/2)
-    axis_name: Optional[tuple] = None   # multi-device slice
+    # the rank's connector.ShardAxis (group, rank, world size); None =
+    # one device, the emulated transport
+    axis_name: Optional[connector.ShardAxis] = None
     # out-of-core: return the (sp, n_parts, C) sender buckets to the host
     # instead of exchanging them; the out-of-core driver performs the
     # exchange as a host-side transpose into its run-structured inbox
     ooc_collect: bool = False
-    exchange_apart: bool = False        # multi-device slice
+    # sharded driver: return the MESSAGE leg's pre-exchange (P_local,
+    # n_parts, C) buckets, so the driver runs the all-to-all as its own
+    # timed stage. Mutations still exchange inside the superstep.
+    exchange_apart: bool = False
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -92,11 +105,16 @@ def compact_combined(dst, payload, valid, capc: int):
 def make_superstep(program: VertexProgram, plan: PhysicalPlan,
                    ec: EngineConfig):
     plan.validate(program.combine_op)
-    if ec.axis_name is not None or ec.exchange_apart:
-        raise NotImplementedError(
-            "axis_name / exchange_apart come with the port's multi-device "
-            "slice")
     n_parts = ec.n_parts
+    axis = ec.axis_name
+    if axis is None:
+        exchange = connector.exchange_emulated
+        part_base = 0
+    else:
+        import torch.distributed as dist
+        exchange = partial(connector.exchange_all_to_all, axis=axis)
+        # rank w owns the CONTIGUOUS global partitions [w * P/N, ...)
+        part_base = axis.rank * (n_parts // axis.world)
     op = program.combine_op
     named_comb = op != "custom"
     kernel_gather = plan.join == "full_outer"
@@ -139,7 +157,8 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         dev = vert.vid.device
         make = has_msg & (vert.vid < 0)
         s_ids = torch.arange(Np, dtype=torch.int32, device=dev)[None, :]
-        p_ids = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        p_ids = torch.arange(P, dtype=torch.int32, device=dev)[:, None] \
+            + part_base
         if part0:
             p_ids = p_ids + part0
         slot_vid = (s_ids + p_ids * Np if plan.partition == "range"
@@ -245,8 +264,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
             partition=plan.partition, capacity=Np, presorted=presorted)
         if collect:   # out-of-core: the buckets go back to the host
             return b_dst, b_pay, b_val, ovf.sum()
-        r_dst, r_pay, r_val = connector.exchange_emulated(b_dst, b_pay,
-                                                          b_val)
+        r_dst, r_pay, r_val = exchange(b_dst, b_pay, b_val)
         P = dst.shape[0]
         flat = lambda a: a.reshape((P, -1) + a.shape[3:])
         return flat(r_dst), flat(r_pay), flat(r_val), ovf.sum()
@@ -343,9 +361,9 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
             if capc < dst.shape[1]:
                 dst, payload, valid, ovf_pack = compact_combined(
                     dst, payload, valid, capc)
-        r_dst, r_pay, r_val, ovf = route(dst, payload, valid, ec.bucket_cap,
-                                         Np, presorted,
-                                         collect=ec.ooc_collect)
+        r_dst, r_pay, r_val, ovf = route(
+            dst, payload, valid, ec.bucket_cap, Np, presorted,
+            collect=ec.ooc_collect or ec.exchange_apart)
         # 5. mutations (D6), after the sends: gen_messages read the edges
         # as they were, so a vertex that deletes itself still sends
         m_ovf = torch.zeros((), dtype=torch.int32, device=dev)
@@ -357,25 +375,43 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         # 6. global state. Overflow is counted PER SOURCE (bucket /
         # frontier / mutation / edge) so the driver doubles only the
         # capacity that overflowed.
-        msg_count = i32(r_val.sum())
         zero = torch.zeros((), dtype=torch.int32, device=dev)
-        overflow = torch.stack([
+        tallies = torch.stack([
+            i32(r_val.sum()),
             i32(ovf) + i32(ovf_pack),
             i32(frontier[2].sum()) if frontier is not None else zero,
             i32(m_ovf),
-            i32(ovf_edges)])
-        active_count = i32(active.sum())
+            i32(ovf_edges),
+            i32(active.sum())])
+        not_all_halted = i32(~(halt | (vid < 0)).all()).reshape(1)
         if agg is not None:
             contrib, mask = agg
             agg_val = torch.where(mask[..., None], contrib, 0.0) \
                 .reshape(-1, program.agg_dims).sum(0)
         else:
             agg_val = gs.aggregate
-        halt_all = (halt | (vid < 0)).all()
+        if axis is not None:
+            # every rank ends the superstep with the same global state:
+            # SUM of the counts and the overflow vector, MAX of the
+            # "not all halted" votes, SUM of the aggregate partials (the
+            # ranks' adding order is not run_host's: a float aggregate
+            # agrees to rounding)
+            dist.all_reduce(tallies, group=axis.group)
+            dist.all_reduce(not_all_halted, op=dist.ReduceOp.MAX,
+                            group=axis.group)
+            if agg is not None:
+                agg_val = agg_val.to(torch.float32).contiguous()
+                dist.all_reduce(agg_val, group=axis.group)
+        msg_count = tallies[0]
+        overflow = tallies[1:5]
+        active_count = tallies[5]
+        halt_all = not_all_halted[0] == 0
         g_halt = halt_all & (msg_count == 0)
         new_vert = VertexRel(vid=vid, halt=halt, value=value,
                              edge_src=vert.edge_src, edge_dst=edge_dst,
                              edge_val=edge_val)
+        # under ooc_collect / exchange_apart new_msg carries the
+        # PRE-EXCHANGE (P, n_parts, C) buckets; the driver exchanges them
         new_msg = MsgRel(dst=r_dst, payload=r_pay, valid=r_val)
         new_gs = GlobalState(
             halt=g_halt | program.is_converged(gs),

@@ -1,0 +1,103 @@
+"""Worker meshes of the port's sharded driver (``core/sharded.py``).
+
+The reference builds a ``jax`` device mesh; the port runs one process a
+rank under ``torch.distributed``, so its mesh is a small description: the
+world size, the backend the ranks' tensor collectives run over, and each
+rank's device. The backend rule is fixed, not a fallback:
+
+* a graph on the CPU puts every rank on the CPU, over ``gloo``;
+* a graph on CUDA puts rank w on ``cuda:(w % cards)``, over ``nccl``
+  when every rank has a card of its own, else over ``gloo`` (NCCL
+  refuses two ranks on one GPU). gloo's all-to-all takes CUDA tensors and
+  stages them through the host itself.
+
+Nothing here touches a device at import time.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# ranks that may share one card over gloo: each holds its own CUDA
+# context and caching allocator on that card
+MAX_RANKS_PER_CARD = 8
+PRODUCTION = ("the (16, 16) pod mesh needs 256 ranks; it waits for the "
+              "port's dry-run piece of multiple devices (ROADMAP Queue 1, "
+              "item 5: --dryrun and --mesh production)")
+
+
+@dataclass(frozen=True)
+class HostMesh:
+    """A 1-D ("data",) mesh of ``n_workers`` ranks on one host."""
+    n_workers: int
+    backend: str                  # "nccl" | "gloo"
+    devices: Tuple[str, ...]      # rank w's device
+    axis_names: Tuple[str, ...] = ("data",)
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.n_workers}
+
+
+def backend_for(n_workers: int, device_type: str) -> str:
+    """The transport rule: NCCL when every rank has a card of its own,
+    gloo otherwise (and always on the CPU)."""
+    if device_type != "cuda":
+        return "gloo"
+    import torch
+    return "nccl" if n_workers <= torch.cuda.device_count() else "gloo"
+
+
+def make_host_mesh(devices: Optional[int] = None, *,
+                   device="cuda") -> HostMesh:
+    """A 1-D mesh of ``devices`` ranks (None: one a card on CUDA, one on
+    the CPU) for a graph on ``device``. Raises when more ranks are asked
+    for than the transport can place: on CUDA, more than
+    ``MAX_RANKS_PER_CARD`` ranks a card (or no card at all); on the CPU,
+    more ranks than the host has cores."""
+    import torch
+    kind = torch.device(device).type
+    if kind == "cuda":
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("a CUDA mesh needs a card: no CUDA device "
+                               "present (load the graph on the CPU)")
+        n = cards if devices is None else int(devices)
+        if n > cards * MAX_RANKS_PER_CARD:
+            raise RuntimeError(
+                f"requested a {n}-rank mesh but {cards} card(s) hold at "
+                f"most {cards * MAX_RANKS_PER_CARD} ranks "
+                f"({MAX_RANKS_PER_CARD} a card)")
+        devs = tuple(f"cuda:{w % cards}" for w in range(n))
+    elif kind == "cpu":
+        n = 1 if devices is None else int(devices)
+        cores = os.cpu_count() or 1
+        if n > cores:
+            raise RuntimeError(f"requested a {n}-rank CPU mesh but the "
+                               f"host has {cores} core(s)")
+        devs = ("cpu",) * n
+    else:
+        raise ValueError(f"no mesh for device {device}")
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one rank, got {n}")
+    return HostMesh(n_workers=n, backend=backend_for(n, kind),
+                    devices=devs)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's (16, 16) or (2, 16, 16) pod mesh: not in the port
+    yet."""
+    raise NotImplementedError(PRODUCTION)
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel axes of a mesh (('pod','data') when multi-pod)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_axis_size(mesh) -> int:
+    n = 1
+    for a in dp_axes(mesh):
+        n *= mesh.shape[a]
+    return n

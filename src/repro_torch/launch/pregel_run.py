@@ -1,6 +1,6 @@
-"""Command-line entry point of the port: one Pregel job on one device,
-with the reference's flags and output lines (``repro.launch.pregel_run``)
-for its single-device modes.
+"""Command-line entry point of the port: one Pregel job on one device or
+sharded over several ranks, with the reference's flags and output lines
+(``repro.launch.pregel_run``).
 
     PYTHONPATH=src python -m repro_torch.launch.pregel_run \\
         --algo sssp --dataset webmap-tiny --parts 4 --auto-plan --explain
@@ -12,14 +12,20 @@ checkpoints and supervised recovery (``--checkpoint-every``,
 ``--checkpoint-dir``, ``--recover``; ``$REPRO_FAULT_PLAN`` arms the
 chaos harness before the run) and the observability outputs
 (``--trace`` Chrome JSON, ``--report`` run report, ``--explain`` plan
-audit, ``--metrics``, ``--progress``). ``--dryrun``, ``--devices N > 1``
-and ``--mesh host|production`` belong to the multi-device slice and stop
-with an error that says so.
+audit, ``--metrics``, ``--progress``). ``--devices N`` (or ``--mesh
+host``) runs the job sharded over N ranks (``core/sharded.py``'s
+``run_sharded``, the exchange a ``torch.distributed`` all-to-all), in
+memory or ``--ooc`` with a per-worker budget; the ranks follow
+``--device`` (the card by default; on one card N > 1 ranks exchange over
+gloo, since NCCL refuses two ranks on one GPU). ``--dryrun`` and ``--mesh
+production`` need hundreds of ranks and stop with an error that names
+their ROADMAP item.
 
 ``main(argv)`` parses and runs; ``run(args, graph=(edges, n))`` runs
 parsed arguments on a graph the caller already holds (``--dataset`` then
-only labels the output) and returns the ``RunResult`` and the report
-document (None without ``--report``/``--explain``).
+only labels the output; ``pool=`` a ``core.sharded.RankPool`` for the
+sharded modes) and returns the ``RunResult`` and the report document
+(None without ``--report``/``--explain``).
 """
 from __future__ import annotations
 
@@ -29,8 +35,9 @@ from typing import Optional
 from repro_torch.core.plan import KERNEL_IMPLS
 
 ALGOS = ("pagerank", "sssp", "cc")
-MULTI_DEVICE = ("belongs to the port's multi-device slice (ROADMAP "
-                "Queue 1, item 5), not ported yet")
+DRYRUN = ("needs hundreds of ranks (the reference lowers a 256/512-"
+          "device mesh); not in the port yet (ROADMAP Queue 1, item 5: "
+          "--dryrun and --mesh production)")
 
 
 def make_program(algo: str, n: int):
@@ -45,18 +52,24 @@ def make_program(algo: str, n: int):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.pregel_run",
-        description="Run one Pregel job on one device (the card unless "
-                    "--device cpu).")
+        description="Run one Pregel job on one device or sharded over "
+                    "several ranks (the card unless --device cpu).")
     ap.add_argument("--dryrun", action="store_true",
-                    help="abstract-mesh lowering; " + MULTI_DEVICE)
+                    help="abstract-mesh lowering; " + DRYRUN)
     ap.add_argument("--algo", default="pagerank", choices=ALGOS)
     ap.add_argument("--mesh", default=None,
                     choices=["host", "production"],
-                    help="mesh source of the sharded driver, which "
-                         + MULTI_DEVICE)
+                    help="host = a 1-D mesh of --devices ranks (default: "
+                         "one a card, one on the CPU) through run_sharded; "
+                         "production = the (16, 16) pod mesh, which "
+                         + DRYRUN)
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard the job over this many devices; "
-                         + MULTI_DEVICE)
+                    help="run the job SHARDED over this many ranks via "
+                         "run_sharded (one process a rank on --device, "
+                         "the bucket exchange a torch.distributed "
+                         "all-to-all: NCCL when every rank has a card of "
+                         "its own, else gloo); composes with --ooc for "
+                         "per-worker tiered stores")
     ap.add_argument("--join", default="full_outer")
     ap.add_argument("--groupby", default="scatter")
     ap.add_argument("--connector", default="partitioning")
@@ -152,17 +165,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.dryrun:
-        ap.error("--dryrun " + MULTI_DEVICE)
-    if args.devices > 1:
-        ap.error(f"--devices {args.devices} " + MULTI_DEVICE)
-    if args.mesh is not None:
-        ap.error(f"--mesh {args.mesh} " + MULTI_DEVICE)
+        ap.error("--dryrun " + DRYRUN)
+    if args.mesh == "production":
+        ap.error("--mesh production " + DRYRUN)
+    if args.devices < 0:
+        ap.error(f"--devices {args.devices}: a rank count is positive")
     if args.recover and not args.checkpoint_dir:
         ap.error("--recover needs --checkpoint-dir (and a nonzero "
                  "--checkpoint-every) so a failure has a snapshot "
                  "to restore")
     if args.ooc:
-        if args.budget_partitions and args.parts % args.budget_partitions:
+        if sharded(args):
+            per_worker = args.parts // max(args.devices, 1)
+            if args.budget_partitions and \
+                    per_worker % args.budget_partitions:
+                ap.error(f"--budget-partitions {args.budget_partitions} "
+                         f"must divide the per-worker block {per_worker} "
+                         f"(--parts {args.parts} / {args.devices} "
+                         f"devices)")
+        elif args.budget_partitions and \
+                args.parts % args.budget_partitions:
             ap.error(f"--budget-partitions {args.budget_partitions} must "
                      f"divide --parts {args.parts}")
         if args.memory_budget_bytes and not args.disk_dir:
@@ -175,10 +197,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def run(args: argparse.Namespace, graph: Optional[tuple] = None):
+def sharded(args: argparse.Namespace) -> bool:
+    """Does ``args`` select the sharded driver?"""
+    return args.devices > 1 or args.mesh == "host"
+
+
+def _largest_half_divisor(n: int) -> int:
+    """The largest divisor of n that is <= n // 2 (1 for n = 1)."""
+    return next(b for b in range(max(n // 2, 1), 0, -1) if n % b == 0)
+
+
+def run(args: argparse.Namespace, graph: Optional[tuple] = None,
+        pool=None):
     """Run the job ``args`` describes and print the reference's lines.
-    ``graph=(edges, n)`` stands in for the ``--dataset`` lookup. ->
-    (RunResult, report dict or None)."""
+    ``graph=(edges, n)`` stands in for the ``--dataset`` lookup; ``pool``
+    (a ``core.sharded.RankPool``) runs the sharded modes on existing
+    ranks. -> (RunResult, report dict or None)."""
     from repro_torch.core import PhysicalPlan, gather_values, load_graph
     from repro_torch.obs import (explain, fmt_plan, memwatch,
                                  progress_line, report, trace,
@@ -195,7 +229,8 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None):
     edges, n = graph
     program = make_program(args.algo, n)
     vert = load_graph(edges, n, P=args.parts, value_dims=program.value_dims,
-                      device="cpu" if args.ooc else args.device)
+                      device=("cpu" if args.ooc and not sharded(args)
+                              else args.device))
     faults.install_from_env()   # REPRO_FAULT_PLAN: the chaos harness
     ft_kw = dict(checkpoint_every=args.checkpoint_every,
                  checkpoint_dir=args.checkpoint_dir,
@@ -216,12 +251,13 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None):
         def show(i, rec):
             print(progress_line(rec, plan_tag, n_vertices=n), flush=True)
     try:
-        if args.ooc:
+        if sharded(args):
+            res, mode = _run_sharded(args, vert, program, plan, kimp, show,
+                                     ft_kw, pool)
+        elif args.ooc:
             from repro_torch.core.ooc import run_out_of_core
-            budget = args.budget_partitions or next(
-                # the largest divisor of parts that is <= parts // 2
-                b for b in range(max(args.parts // 2, 1), 0, -1)
-                if args.parts % b == 0)
+            budget = args.budget_partitions or \
+                _largest_half_divisor(args.parts)
             res = run_out_of_core(
                 vert, program, plan, budget_partitions=budget,
                 max_supersteps=40, kernel_impl=kimp, stream=args.stream,
@@ -253,6 +289,14 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None):
     vals = gather_values(res.vertex, n)
     print(f"{args.algo} on {args.dataset} [{mode}, {args.device}]: "
           f"{res.supersteps} supersteps, {res.wall_s:.2f}s wall")
+    if sharded(args):
+        ex = [s for s in res.stats if "exchange_stall_s" in s]
+        if ex:
+            print(f"exchange: "
+                  f"{sum(s['exchange_stall_s'] for s in ex):.3f}s stall, "
+                  f"{sum(s['exchange_bytes'] for s in ex) / 2**20:.1f} "
+                  f"MiB over {len(ex)} supersteps on {len(res.workers)} "
+                  f"workers ({ex[-1]['transport']})")
     for ev in res.recovery or ():
         print(f"recovery #{ev.get('attempt')}: restored from "
               f"{ev.get('restored_from') or 'initial relations'} onto "
@@ -336,6 +380,35 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None):
               f"chrome://tracing or ui.perfetto.dev)")
     print("value head:", vals[:5, 0])
     return res, rep
+
+
+def _run_sharded(args, vert, program, plan, kimp, show, ft_kw, pool):
+    """The sharded modes: run_sharded over --devices ranks (in memory, or
+    --ooc with the reference's per-worker budget rule). -> (RunResult,
+    mode label)."""
+    from repro_torch.core.sharded import run_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(args.devices or None, device=args.device)
+    n_dev = mesh.n_workers
+    ooc_kw, tier = {}, ""
+    if args.ooc:
+        per_worker = args.parts // n_dev
+        budget = args.budget_partitions or _largest_half_divisor(per_worker)
+        ooc_kw = dict(budget_partitions=budget, disk_dir=args.disk_dir,
+                      memory_budget_bytes=args.memory_budget_bytes,
+                      io_threads=args.io_threads,
+                      readahead_pages=args.readahead_pages,
+                      eviction=args.eviction)
+        tier = (f", ooc budget={budget}/{per_worker} per worker" +
+                (f", disk tier at {args.disk_dir}/worker*"
+                 f" [{args.eviction}]" if args.disk_dir else ""))
+        # sharded npz checkpointing is in-memory mode only; recover
+        # without checkpoints would only restart from scratch
+        ft_kw = dict(recover=args.recover, max_retries=args.max_retries)
+    res = run_sharded(vert, program, plan, mesh=mesh, max_supersteps=40,
+                      kernel_impl=kimp, on_superstep=show, pool=pool,
+                      **ooc_kw, **ft_kw)
+    return res, f"sharded x{n_dev} devices{tier}"
 
 
 def main(argv=None) -> int:

@@ -161,6 +161,16 @@ class Tracer:
     def n_events(self) -> int:
         return sum(len(ev) for _, _, ev in self.drain())
 
+    def adopt(self, buffers: list, label: str, tid_base: int):
+        """Take another process's drained (tid, thread_name, events)
+        buffers into this recording, each thread named ``<name>
+        [<label>]`` with its id offset by ``tid_base`` (the sharded
+        driver's ranks: their clocks are this host's wall clock)."""
+        with self._mu:
+            for tid, nm, ev in buffers:
+                self._bufs.append((tid_base + tid % (1 << 32),
+                                   f"{nm} [{label}]", list(ev)))
+
 
 # ---- module-level API (what the engine instruments against) ----------
 _tracer: Optional[Tracer] = None

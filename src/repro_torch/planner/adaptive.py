@@ -316,17 +316,22 @@ def resolve_auto_plan(vert, program, *,
                       machine: MachineModel = H100_MACHINE,
                       space_kw: Optional[dict] = None,
                       g: Optional[GraphStats] = None,
+                      obs0: Optional[Observation] = None,
                       ) -> Tuple[PhysicalPlan, Optional[AdaptiveController]]:
     """Entry point for drivers' ``plan="auto"``: pick the initial plan for
     superstep 0 (Pregel activates EVERY vertex, so density starts at 1.0)
     and, when `adaptive`, the controller that re-chooses mid-run. ``g``
-    supplies the graph statistics when the caller has them already."""
+    supplies the graph statistics when the caller has them already.
+    ``obs0`` overrides the superstep-0 observation: the sharded driver
+    passes sharded=True / n_workers so the INITIAL pick already prices
+    the network axis."""
     if base is not None and base.frontier_capacity != 1.0:
         # superstep 0 must cover all vertices under left-outer
         base = dataclasses.replace(base, frontier_capacity=1.0)
     if g is None:
         g = GraphStats.from_vertex(vert, program)
-    plan, _ = choose(program, g, Observation(frontier_density=1.0),
+    plan, _ = choose(program, g,
+                     obs0 or Observation(frontier_density=1.0),
                      base=base, machine=machine, **(space_kw or {}))
     if not adaptive:
         return plan, None

@@ -24,9 +24,9 @@ Out-of-core runs add a STORAGE dimension: each streamed super-partition
 writes its vertex updates back over the device<->host link, and the
 ``storage_writeback`` term prices the ``inplace`` (full-block stream) vs
 ``delta`` (changed-records scatter-merge) policies from the measured
-change density (``Observation.change_density``). The out-of-core and
-sharded terms are pure arithmetic, kept for the drivers that will read
-them.
+change density (``Observation.change_density``). The out-of-core terms
+price ``run_out_of_core``'s records, the sharded terms (the network
+axis) ``run_sharded``'s.
 
 Only RANKING between plans matters for the optimizer; absolute seconds
 are a roofline bound, a lower bound on real wall time.
@@ -91,11 +91,10 @@ class MachineModel:
     # host DRAM: a 2 GiB numpy copy, bytes read + written over host-clock
     # time (one thread); the out-of-core inbox restack runs at this rate
     host_mem_bw: float = 1.8019e10
-    # one card has no network: a sharded exchange would be a transpose in
-    # HBM
+    # placeholders, unmeasured for a link between cards: the HBM copy
+    # rate, and the reference's per-exchange dispatch latency. One card
+    # runs run_sharded's ranks over gloo through the host (PERF.md §7)
     net_bw: float = 2.9981e12
-    # per-exchange dispatch latency: the reference's default, not
-    # measured (one card runs no all_to_all stage)
     net_latency_s: float = 10e-6
     k_compute: float = K_COMPUTE
     k_scatter: float = K_SCATTER

@@ -37,10 +37,17 @@ process-global and survives recovery attempts, so a ``times=1`` fault
 fires once and the replay passes — exactly the transient-failure model
 the recovery supervisor is built for.
 
-Every site but ``sharded.exchange`` is wired in the port: the storage
-sites by ``repro_torch.storage``, ``checkpoint.commit`` by both savers,
-``superstep`` by ``run_host`` and ``run_out_of_core``;
-``sharded.exchange`` comes with the multi-device slice.
+Every site is wired in the port: the storage sites by
+``repro_torch.storage``, ``checkpoint.commit`` by both savers,
+``superstep`` by ``run_host``, ``run_out_of_core`` and ``run_sharded``'s
+ranks, ``sharded.exchange`` by ``run_sharded``'s exchange stage.
+
+The sharded driver's ranks are processes of their own: the caller's
+injector travels to them as its state (``export_state``), each rank arms
+a copy (``install_state``), and its counts come back with the rank's
+reply (``merge_state``: a spec's hits and firings are the most any rank
+saw), so a ``times=1`` fault fires once per job, in every rank that
+reaches it, and the replay passes.
 
 ``REPRO_FAULT_PLAN`` is either a path to a plan JSON or the JSON itself
 (starts with ``{``); ``install_from_env`` arms it (the port's CLI,
@@ -198,6 +205,32 @@ class FaultInjector:
                                 f"injected at superstep {superstep}"
                                 f" ({driver or 'any driver'})")
 
+    # -- state across processes (the sharded driver's ranks) ----------
+    def state(self) -> dict:
+        with self._lock:
+            return {"plan": self.plan.to_json(), "hits": list(self._hits),
+                    "fired": list(self._fired),
+                    "site_hits": dict(self.site_hits),
+                    "rng": self._rng.getstate()}
+
+    def load(self, state: dict):
+        with self._lock:
+            self._hits = list(state["hits"])
+            self._fired = list(state["fired"])
+            self.site_hits = dict(state["site_hits"])
+            self._rng.setstate(state["rng"])
+
+    def merge(self, state: dict):
+        """Fold a rank's counts into this injector: per spec the larger
+        hit and firing counts, per site the larger hit count."""
+        with self._lock:
+            self._hits = [max(a, b) for a, b in zip(self._hits,
+                                                     state["hits"])]
+            self._fired = [max(a, b) for a, b in zip(self._fired,
+                                                      state["fired"])]
+            for k, v in state["site_hits"].items():
+                self.site_hits[k] = max(self.site_hits.get(k, 0), v)
+
     # -- reporting ------------------------------------------------------
     def summary(self) -> dict:
         with self._lock:
@@ -267,3 +300,27 @@ def superstep_tick(superstep: int, driver: str = ""):
 
 def summary() -> Optional[dict]:
     return _injector.summary() if _injector is not None else None
+
+
+def export_state() -> Optional[dict]:
+    """The armed injector's plan and counts (picklable), or None."""
+    return _injector.state() if _injector is not None else None
+
+
+def install_state(state: Optional[dict]) -> Optional[FaultInjector]:
+    """Arm this process with an exported injector, counts included
+    (None disarms)."""
+    global _injector
+    if state is None:
+        _injector = None
+        return None
+    inj = FaultInjector(FaultPlan.from_json(state["plan"]))
+    inj.load(state)
+    _injector = inj
+    return inj
+
+
+def merge_state(state: Optional[dict]):
+    """Fold a rank's exported counts into this process's injector."""
+    if _injector is not None and state is not None:
+        _injector.merge(state)

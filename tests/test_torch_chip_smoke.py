@@ -1,6 +1,6 @@
 """chip_smoke.py's phases 10 (mutations and the library programs), 11
-(checkpoints and recovery), 12 (the planner) and 13 (out-of-core),
-rehearsed on the CPU at a small graph500 scale through the port's plain
+(checkpoints and recovery), 12 (the planner), 13 (out-of-core), 14 (the
+CLI) and 15 (the sharded driver), rehearsed on the CPU at a small graph500 scale through the port's plain
 path: the same runs and the same checks against scipy and closed forms
 as on the card, so a fault in the phases' own logic shows here and not
 first on the card."""
@@ -113,3 +113,28 @@ def test_phase_14_on_the_cpu():
     assert out["ooc_pagerank"]["fault_spans"] > 0
     assert out["recover_sssp"]["healthy_workers"] == 3
     assert out["recover_sssp"]["injected_fired"] == 1
+
+
+def test_phase_15_on_the_cpu():
+    """Phase 15 (run_sharded on one pool of 2 ranks) on the CPU at
+    graph500-10 for every graph: one rank, two ranks, two ranks out of
+    core, recovery 2 -> 1, and the CLI with --devices 2 on webmap-tiny (gloo
+    throughout on the CPU; the card's NCCL runs are (a) and the
+    replay of (d))."""
+    big = cs.graph_and_references(SCALE, device="cpu")
+    # SSSP takes 5 supersteps at graph500-10: the failure comes at 3
+    out = cs.sharded_phase(big, big, device="cpu", fail_at=3,
+                           dataset="webmap-tiny")
+    assert set(out) == {"a_pagerank", "a_sssp", "b_pagerank", "b_sssp",
+                        "c_pagerank_ooc", "d_sssp_recovered", "e_cli"}
+    assert out["a_pagerank"]["bit_equal_phase3"]
+    assert out["a_pagerank"]["n_workers"] == 1
+    assert out["b_pagerank"]["bit_equal_run_host"]
+    assert out["b_sssp"]["n_workers"] == 2
+    assert all(st["transport"] == "gloo" for st in out.values())
+    assert out["c_pagerank_ooc"]["exchange_bytes_per_superstep"] > 0
+    rec = out["d_sssp_recovered"]
+    assert rec["injected_fired"] == 1 and rec["n_workers"] == 1
+    assert rec["recovery"][0]["healthy_workers"] == 1
+    assert out["e_cli"]["exchange_line"].endswith(
+        "supersteps on 2 workers (gloo)")

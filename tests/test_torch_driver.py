@@ -143,8 +143,10 @@ def test_entry_points_refuse_later_slices():
         T.run_host(vert, mk_t(), "fastest")
     with pytest.raises(ValueError):
         T.run_jit(vert, mk_t(), "fastest")
-    # the multi-device transport is a later slice
-    with pytest.raises(NotImplementedError):
+    # a shard axis is run_sharded's: outside a process group its
+    # collectives refuse to run
+    from repro_torch.core.connector import ShardAxis
+    with pytest.raises(ValueError, match="process group"):
         T.run_host(vert, mk_t(), T.SPARSE_PLAN,
                    ec=T.EngineConfig(n_parts=4, bucket_cap=64,
-                                     axis_name=("x",)))
+                                     axis_name=ShardAxis(0, 1)))

@@ -31,7 +31,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.obs.trace", "repro_torch.obs.metrics",
            "repro_torch.obs.progress", "repro_torch.obs.explain",
            "repro_torch.obs.memwatch", "repro_torch.obs.report",
-           "repro_torch.obs.export", "repro_torch.launch.pregel_run"]
+           "repro_torch.obs.export", "repro_torch.launch.pregel_run",
+           "repro_torch.core.connector", "repro_torch.core.sharded",
+           "repro_torch.launch.mesh"]
 
 
 def test_imports_with_jax_unimportable():

@@ -5,8 +5,10 @@ report, audit, trace and metrics on; SSSP under ``--auto-plan``; CC out
 of core on the disk tier; SSSP under ``--recover`` with a fault plan in
 ``REPRO_FAULT_PLAN``. Each pair gives the same superstep count, the same
 final plan and switch supersteps, equal SSSP and CC values and PageRank
-within rtol 1e-5, and prints a schema-valid report. The multi-device
-modes stop with an error that names their slice."""
+within rtol 1e-5, and prints a schema-valid report. ``--devices`` and
+``--mesh host`` parse into the sharded driver (run in
+``tests/test_torch_sharded.py``); ``--dryrun`` and ``--mesh production``
+stop with an error that names their ROADMAP item."""
 import json
 import re
 import sys
@@ -150,10 +152,17 @@ def test_cli_matches_the_reference_cli(mode, tmp_path, monkeypatch,
                                   ["--mesh", "host"],
                                   ["--mesh", "production"]])
 def test_multi_device_modes_stop_with_their_slice(argv, capsys):
+    """--devices N and --mesh host select the sharded driver; the modes
+    that need hundreds of ranks still stop, naming their ROADMAP item."""
+    if argv in (["--devices", "2"], ["--mesh", "host"]):
+        args = tcli.parse_args(argv + ["--device", "cpu"])
+        assert tcli.sharded(args)
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2
-    assert "multi-device slice" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP Queue 1, item 5" in err and "hundreds of ranks" in err
 
 
 def test_the_card_is_the_default(monkeypatch, capsys):

@@ -131,9 +131,10 @@ def test_fused_pack_with_overflow_matches_kernel_path(algo):
 
 
 def test_superstep_refuses_what_later_slices_bring():
-    """The multi-device transport still raises; ooc_collect (the
-    out-of-core slice) builds and hands back the (P, n_parts, C)
-    buckets, their occupancy counts and no mutation buckets."""
+    """ooc_collect (the out-of-core slice) builds and hands back the (P,
+    n_parts, C) buckets, their occupancy counts and no mutation buckets;
+    exchange_apart (the sharded driver) hands back the same buckets as
+    its message output; a shard axis outside a process group raises."""
     prog = TG.SSSP(source=0)
     ec = T.EngineConfig(n_parts=4, bucket_cap=8)
     step = t_make_superstep(prog, T.PhysicalPlan(),
@@ -144,9 +145,18 @@ def test_superstep_refuses_what_later_slices_bring():
     assert buckets.dst.shape == (4, 4, 8) and counts.shape == (4, 4)
     assert torch.equal(counts, buckets.valid.sum(2, dtype=torch.int32))
     assert mut is None and int(g2.msg_count) == int(counts.sum())
-    with pytest.raises(NotImplementedError):
-        t_make_superstep(prog, T.PhysicalPlan(),
-                         dataclasses.replace(ec, axis_name=("data",)))
+    apart = t_make_superstep(prog, T.PhysicalPlan(),
+                             dataclasses.replace(ec, exchange_apart=True))
+    v3, b3, g3 = apart(vert, msg, gs)
+    for f in ("dst", "payload", "valid"):
+        assert torch.equal(getattr(b3, f), getattr(buckets, f))
+    assert int(g3.msg_count) == int(g2.msg_count)
+    from repro_torch.core.connector import ShardAxis
+    sharded = t_make_superstep(
+        prog, T.PhysicalPlan(),
+        dataclasses.replace(ec, axis_name=ShardAxis(0, 1)))
+    with pytest.raises(ValueError, match="process group"):
+        sharded(vert, msg, gs)
 
 
 def test_superstep_device_and_kernel_impl_must_agree():
