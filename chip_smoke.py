@@ -180,11 +180,28 @@ and never prints its last line):
    single-device CLI run's distances. Prints for each the transport,
    supersteps, median superstep s, run s, job s, the median exchange
    bytes and stall a superstep and each rank's peak device bytes.
+16. the production dry run and the graph examples: (a) python -m
+   repro_torch.launch.pregel_run --dryrun --scale paper-large --mesh
+   both for pagerank, sssp and cc, three subprocesses started together
+   (no device; rank 0's superstep on meta tensors over a fake 256- or
+   512-rank group): every record status ok, its all-to-all bytes equal
+   to M x ((1 + D) x 4 + 1) x (N - 1) / N and its vertex and message
+   argument bytes to the capacity formula; prints each record's plan,
+   bytes, flops, collective bytes, argument and peak bytes and roofline
+   terms. (b) the operator counter's argument + eager peak bytes of
+   phase 3's PageRank superstep (meta tensors at its shape) beside the
+   max_memory_allocated of phase 3's PageRank run: a reading, no gate.
+   (c) examples/{quickstart,pagerank_webmap,path_merge_genomix}_torch.py
+   on the card in this process, the counts set to 0 before each and
+   read after it: quickstart's SSSP equal to scipy's hop counts (the
+   fold launched), the webmap PageRank within rtol 1e-4 of scipy's power
+   iteration with its checkpoint repartitioned onto P = 3, PathMerge's
+   mass equal to n (both kernels launched in each).
 
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
-kernels, on phase 12's, 13's, 14's and 15's runs), max abs err, kernel /
+kernels, on phase 12's to 16's runs), max abs err, kernel /
 plain / bound / library ms. The last line is {"ok": true, "device":
 {...}}.
 """
@@ -520,16 +537,24 @@ def run_main_path(edges, n, device, stats_out: dict):
         sync = torch.cuda.synchronize if device == "cuda" else \
             (lambda: None)
         sync()
+        mem = {}
+        if device == "cuda":   # phase 16 (b) reads the run's peak
+            torch.cuda.reset_peak_memory_stats()
+            mem = dict(allocated_before_bytes=torch.cuda.memory_allocated())
         t0 = time.perf_counter()
         res = run_host(vert, prog, prog.suggested_plan, max_supersteps=60)
         sync()
+        if device == "cuda":
+            mem["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         walls = [s["wall_s"] for s in res.stats if "wall_s" in s]
         stats_out[name] = dict(
             supersteps=res.supersteps, run_s=time.perf_counter() - t0,
             superstep_median_s=statistics.median(walls),
             superstep_median_after_first_s=(statistics.median(walls[1:])
                                             if len(walls) > 1 else None),
-            events=[s["event"] for s in res.stats if "event" in s])
+            events=[s["event"] for s in res.stats if "event" in s],
+            shape=dict(P=P, Np=vert.vid.shape[1],
+                       Ep=vert.edge_src.shape[1]), **mem)
         out[name] = gather_values(res.vertex, n)
         del vert, res
         free(device)
@@ -2236,6 +2261,210 @@ def sharded_phase(big, small, *, device="cuda", fail_at: int = 5,
 
 # ------------------------------------------------------------- serving
 
+# ------------------------------------------------------------- phase 16
+
+DRYRUN_ALGOS = ("pagerank", "sssp", "cc")
+DRYRUN_SCALE = "paper-large"
+# each example (examples/*_torch.py) and the kernels its run must launch
+EXAMPLES = {"quickstart": ("segment_combine",),
+            "pagerank_webmap": GRAPH_KERNELS,
+            "path_merge_genomix": GRAPH_KERNELS}
+
+
+def start_dryruns(out_dir) -> dict:
+    """Phase 16 (a)'s three dry runs (pregel_run --dryrun --mesh both at
+    DRYRUN_SCALE), one subprocess an algorithm, all started at once so no
+    process group leaks into this process. -> {algo: Popen}."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return {a: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.pregel_run", "--dryrun",
+         "--algo", a, "--scale", DRYRUN_SCALE, "--mesh", "both", "--tag",
+         "smoke", "--out", str(out_dir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in DRYRUN_ALGOS}
+
+
+def dryrun_expect(algo: str, chips: int, plan: dict) -> dict:
+    """The analytic figures of rank 0's superstep: the all-to-all moves
+    M slots of the connector's wire width (dst + payload + valid), (N-1)/N
+    of them to other ranks; the vertex and message relations hold the
+    capacity formula's slots."""
+    from repro_torch.launch.pregel_run import (GRAPH_SCALES,
+                                               dryrun_capacities,
+                                               make_program)
+    n_v, n_e = GRAPH_SCALES[DRYRUN_SCALE]
+    prog = make_program(algo, n_v)
+    Np, Ep = dryrun_capacities(n_v, n_e, chips)
+    cap = int((Ep / chips + 8) * 1.5)
+    if plan["sender_combine"]:
+        cap = min(cap, Np + 8)
+    M = chips * max(cap, 8)
+    V, D = prog.value_dims, prog.msg_dims
+    return {"all-to-all": 1.0 * M * ((1 + D) * 4 + 1) * (chips - 1) / chips,
+            "vertex": Np * (4 + 1 + 4 * V) + Ep * (4 + 4 + 4),
+            "message": M * (4 + 4 * D + 1)}
+
+
+def finish_dryruns(procs: dict, out_dir) -> dict:
+    """Wait for the dry runs and hold each record to the analytic
+    figures. -> {algo_mesh: what phase 16 prints of it}."""
+    out = {}
+    for algo, proc in procs.items():
+        text, _ = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"dry run {algo} exited "
+                                 f"{proc.returncode}:\n{text[-2000:]}")
+        for mk, chips in (("single", 256), ("multi", 512)):
+            rec = json.loads((Path(out_dir) / f"smoke_pregelix-{algo}_"
+                              f"{DRYRUN_SCALE}_{mk}.json").read_text())
+            if rec["status"] != "ok" or rec["chips"] != chips:
+                raise AssertionError(f"dry run {algo} {mk}: {rec}")
+            want = dryrun_expect(algo, chips, rec["plan"])
+            got = {"all-to-all":
+                   rec["per_device"]["collectives"]["all-to-all"],
+                   "vertex": rec["memory"]["arguments"]["vertex"],
+                   "message": rec["memory"]["arguments"]["message"]}
+            if got != want:
+                raise AssertionError(f"dry run {algo} {mk}: counted {got}, "
+                                     f"analytic {want}")
+            p = rec["plan"]
+            out[f"{algo}_{mk}"] = dict(
+                chips=chips, probe_s=rec["compile_s"],
+                plan=f"{p['join']}/{p['groupby']}/{p['connector']}/"
+                     f"sc={int(p['sender_combine'])}",
+                bytes=rec["per_device"]["bytes"],
+                flops=rec["per_device"]["flops"],
+                collectives=rec["per_device"]["collectives"],
+                argument_bytes=rec["memory"]["argument_bytes"],
+                peak_temp_bytes=rec["memory"]["temp_bytes"],
+                roofline={k: rec["roofline"][k] for k in
+                          ("compute_s", "memory_s", "collective_s",
+                           "dominant")})
+    return out
+
+
+def counter_vs_card(shape: dict, card: dict) -> dict:
+    """Phase 16 (b): phase 3's PageRank superstep at its (P, Np, Ep) on
+    meta tensors under the operator counter (arguments + eager peak),
+    beside the card's max_memory_allocated over phase 3's PageRank run.
+    A reading, not a gate."""
+    import torch
+    from repro_torch.core.driver import default_engine_config, prepare_run
+    from repro_torch.core.relations import VertexRel
+    from repro_torch.core.superstep import make_superstep
+    from repro_torch.graph import PageRank
+    from repro_torch.launch import op_cost
+    Pn, Np, Ep = shape["P"], shape["Np"], shape["Ep"]
+    e = lambda *sh, dt=torch.float32: torch.empty(sh, dtype=dt,
+                                                  device="meta")
+    i32 = torch.int32
+    vert = VertexRel(vid=e(Pn, Np, dt=i32), halt=e(Pn, Np, dt=torch.bool),
+                     value=e(Pn, Np, 2), edge_src=e(Pn, Ep, dt=i32),
+                     edge_dst=e(Pn, Ep, dt=i32), edge_val=e(Pn, Ep))
+    prog = PageRank(1 << 22, iterations=15)
+    plan = prog.suggested_plan
+    ec, v, m, g = prepare_run(vert, prog, plan,
+                              default_engine_config(vert, prog, plan))
+    cost = op_cost.measure(make_superstep(prog, plan, ec), v, m, g)
+    return dict(counter_argument_bytes=cost.argument_bytes,
+                counter_peak_temp_bytes=cost.peak_temp_bytes,
+                counter_total_bytes=cost.argument_bytes
+                + cost.peak_temp_bytes, **card)
+
+
+def load_example(name: str):
+    import importlib.util
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(device: str) -> dict:
+    """Phase 16 (c): each example's main(["--device", device]) in this
+    process, the counts set to 0 before it and read after it, held to a
+    plain reference: quickstart's SSSP to scipy's hop counts, the webmap
+    PageRank within rtol 1e-4 of scipy's float64 power iteration and its
+    recovered checkpoint repartitioned onto P = 3, PathMerge's mass equal
+    to its n."""
+    import torch
+    from repro_torch.graph.algorithms import INF
+    from repro_torch.kernels import COUNTERS
+    out = {}
+    for name, need in EXAMPLES.items():
+        mod = load_example(name)
+        free(device)
+        reset_counters()
+        t0 = time.perf_counter()
+        res = mod.main(["--device", device])
+        free(device)
+        st = dict(run_s=time.perf_counter() - t0,
+                  supersteps=res["result"].supersteps,
+                  launches={k: c.launches for k, c in COUNTERS.items()})
+        need_launches(f"example {name}", st, need, device)
+        if name == "quickstart":
+            hops = sssp_reference(res["edges"], res["n"], 0)
+            want = np.where(np.isinf(hops), np.float32(INF),
+                            hops).astype(np.float32)
+            bad = int((res["dist"] != want).sum())
+            if bad:
+                raise AssertionError(f"quickstart: {bad} distances off "
+                                     "scipy's")
+            st["reached"] = int(np.isfinite(hops).sum())
+        elif name == "pagerank_webmap":
+            ref = pagerank_reference(res["edges"], res["n"],
+                                     res["iterations"])
+            st["max_rel_err"] = rel_close(res["ranks"], ref, 1e-4,
+                                          "webmap example PageRank")
+            if tuple(res["repartitioned"].vid.shape)[0] != 3:
+                raise AssertionError("webmap example: not repartitioned "
+                                     "onto P = 3")
+            st["recovered_superstep"] = res["recovered_superstep"]
+        else:
+            if res["mass"] != res["n"]:
+                raise AssertionError(f"PathMerge mass {res['mass']} != "
+                                     f"{res['n']}")
+            st["survivors"] = res["alive"]
+        out[name] = st
+        del res
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def production_phase(phase3: dict, *, device="cuda") -> dict:
+    """Phase 16: (a) the production dry run of pagerank, sssp and cc at
+    paper-large on the 256- and 512-rank meshes, in subprocesses, each
+    record's all-to-all bytes and argument bytes held to the analytic
+    figures; (b) the counter's argument + peak estimate of phase 3's
+    PageRank superstep beside the card's max_memory_allocated (no gate);
+    (c) the three examples on the card."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(tmp)
+        try:
+            if "max_memory_allocated" in phase3.get("pagerank", {}):
+                pr = phase3["pagerank"]
+                out["memory"] = counter_vs_card(
+                    pr["shape"], {k: pr[k] for k in (
+                        "allocated_before_bytes", "max_memory_allocated")})
+                log(f"phase 16 (b): {json.dumps(out['memory'])}")
+            out["examples"] = run_examples(device)
+            for k, v in out["examples"].items():
+                log(f"phase 16 (c) example {k}: {json.dumps(v)}")
+            out["dryrun"] = finish_dryruns(procs, tmp)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for k, v in out["dryrun"].items():
+        log(f"phase 16 (a) dry run {k}: {json.dumps(v)}")
+    return out
+
+
 def close_in_dtype(got, want, what: str) -> float:
     """Kernel vs plain in the working dtype. bfloat16 keeps 8 significant
     bits, so the two round a value to neighbouring bf16 numbers when their
@@ -2885,7 +3114,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-15 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-16 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -3035,6 +3264,16 @@ def card_phases(args, name: str, child) -> int:
     log(f"phase 15: {time.perf_counter() - t:.1f} s; launches by path: "
         + json.dumps(shard_paths))
     by_path.update(shard_paths)
+
+    # 16. the production dry run (no device), the counter's memory
+    # estimate beside the card's, the examples on the card
+    t = time.perf_counter()
+    phase16 = production_phase(stats)
+    ex_paths = {f"example_{k}": v["launches"]
+                for k, v in phase16["examples"].items()}
+    log(f"phase 16: {time.perf_counter() - t:.1f} s; launches by path: "
+        + json.dumps(ex_paths))
+    by_path.update(ex_paths)
     for k in kernels:
         if k["name"] in GRAPH_KERNELS:
             k["launches_by_path"] = {p: counts[k["name"]]

@@ -23,8 +23,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+# the documented name of every dimension (the reference's sets)
+JOINS = ("full_outer", "left_outer")
+GROUPBYS = ("scatter", "sort")
+CONNECTORS = ("partitioning", "partitioning_merging")
 # the two write-back policies the planner's storage dimension ranges over
 STORAGES = ("inplace", "delta")
+PARTITIONS = ("hash", "range")
 
 KERNEL_IMPLS = ("auto", "ref", "cuda")
 
@@ -44,6 +49,17 @@ class PhysicalPlan:
     kernel_impl: str = "auto"         # auto | ref | cuda
 
     def validate(self, combine_op: str):
+        """Raise on a name outside its documented set (the superstep
+        compares names as strings, so a misspelt one would run another
+        plan) and on a scatter group-by of a custom combine UDF."""
+        for dim, allowed in (("join", JOINS), ("groupby", GROUPBYS),
+                             ("connector", CONNECTORS),
+                             ("storage", STORAGES),
+                             ("partition", PARTITIONS)):
+            name = getattr(self, dim)
+            if name not in allowed:
+                raise ValueError(f"{dim}={name!r}: expected one of "
+                                 f"{' | '.join(allowed)}")
         if self.groupby == "scatter" and combine_op == "custom":
             raise ValueError(
                 "scatter (hash) group-by needs a named monoid combine op; "

@@ -71,6 +71,20 @@ class GlobalState:
     msg_count: torch.Tensor     # () int32
 
 
+def empty_vertices(P: int, Np: int, Ep: int, V: int, device) -> VertexRel:
+    """A relation of P partitions with no vertex and no edge: Np empty
+    vertex slots and Ep empty edge slots each. On ``meta`` it is the
+    shapes and dtypes alone (the operator counter's probes)."""
+    full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
+    return VertexRel(
+        vid=full((P, Np), -1, torch.int32),
+        halt=full((P, Np), True, torch.bool),
+        value=full((P, Np, V), 0.0, torch.float32),
+        edge_src=full((P, Ep), -1, torch.int32),
+        edge_dst=full((P, Ep), -1, torch.int32),
+        edge_val=full((P, Ep), 0.0, torch.float32))
+
+
 def empty_msgs(P: int, M: int, D: int, device) -> MsgRel:
     return MsgRel(
         dst=torch.full((P, M), -1, dtype=torch.int32, device=device),

@@ -5,7 +5,10 @@ kernel (``kernels/csrc/segment_combine.cu``), one launch over every
 partition stream; on a CPU tensor it runs the plain replay of the same
 schedule (``ref.segment_combine_blocked``, once per partition). Both
 give the reference's ``segment_combine_blocked`` bits, float sums
-included. ``counter.launches`` counts kernel launches.
+included. On a ``meta`` tensor (shapes only: the operator counter's
+probe, ``launch/op_cost.py``) it returns outputs of the right shapes and
+dtypes without running and charges the counter the kernel's own
+traffic. ``counter.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ MAX_D = 4
 EPOCHS = 1 << 30          # the kernel tags a tile's status word with these
 
 counter = build.LaunchCounter()
+# the operator counter's by_op key of the fold on meta tensors
+META_OP = "repro_torch.segment_combine"
 
 _ARGTYPES = ([ctypes.c_void_p] * 3
              + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
@@ -114,6 +119,25 @@ def segment_combine_cuda(keys: torch.Tensor, payload: torch.Tensor,
     return out, is_last
 
 
+def segment_combine_meta(keys: torch.Tensor, payload: torch.Tensor,
+                         valid: torch.Tensor, op: str):
+    """The fold on ``meta`` tensors: (folded (P, M, D) float32, is_last
+    (P, M) bool) with no data, and one call of ``META_OP`` charged to
+    the running operator counter: keys, payload and valid read once,
+    folded and is_last written once (the bound column's byte count) and
+    one combine an element of the payload."""
+    from repro_torch.launch import op_cost
+    if op not in OP_CODES:
+        raise ValueError(f"op={op!r}: expected one of {tuple(OP_CODES)}")
+    P, M, D = payload.shape
+    folded = torch.empty((P, M, D), dtype=torch.float32, device="meta")
+    is_last = torch.empty((P, M), dtype=torch.bool, device="meta")
+    io = sum(t.numel() * t.element_size()
+             for t in (keys, payload, valid, folded, is_last))
+    op_cost.charge(META_OP, float(io), float(P * M * D))
+    return folded, is_last
+
+
 def segment_combine(seg_ids: torch.Tensor, payload: torch.Tensor,
                     valid: torch.Tensor, op: str = "sum", *,
                     block_m: int = 512):
@@ -122,7 +146,8 @@ def segment_combine(seg_ids: torch.Tensor, payload: torch.Tensor,
     -> (folded (P, M, D), is_last (P, M)), every partition folded on its
     own. A 1-D call ((M,), (M, D), (M,)) is P = 1 and returns (M, D),
     (M,). The port of segment_combine_pallas: one kernel launch for all
-    partitions on CUDA tensors, the plain replay on CPU tensors."""
+    partitions on CUDA tensors, the plain replay on CPU tensors, the
+    shapes alone on meta tensors."""
     one = seg_ids.dim() == 1
     if one:
         seg_ids, payload, valid = seg_ids[None], payload[None], valid[None]
@@ -136,6 +161,8 @@ def segment_combine(seg_ids: torch.Tensor, payload: torch.Tensor,
     elif dev.type == "cuda":
         folded, is_last = segment_combine_cuda(seg_ids, payload, valid, op,
                                                block_m)
+    elif dev.type == "meta":
+        folded, is_last = segment_combine_meta(seg_ids, payload, valid, op)
     else:
         raise ValueError(f"segment_combine: no kernel for device {dev}")
     return (folded[0], is_last[0]) if one else (folded, is_last)

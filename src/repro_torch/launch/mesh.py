@@ -11,6 +11,12 @@ rank's device. The backend rule is fixed, not a fallback:
   refuses two ranks on one GPU). gloo's all-to-all takes CUDA tensors and
   stages them through the host itself.
 
+The production mesh is the reference's (16, 16) or (2, 16, 16) pod
+mesh: one rank a device, 256 or 512 of them. It is a description too: a
+real run needs a ``torch.distributed`` world of exactly that many ranks
+(``require_world``), and the dry run (``launch/pregel_run.py
+--dryrun``) stands rank 0 of it up over a fake group.
+
 Nothing here touches a device at import time.
 """
 from __future__ import annotations
@@ -22,9 +28,6 @@ from typing import Optional, Tuple
 # ranks that may share one card over gloo: each holds its own CUDA
 # context and caching allocator on that card
 MAX_RANKS_PER_CARD = 8
-PRODUCTION = ("the (16, 16) pod mesh needs 256 ranks; it waits for the "
-              "port's dry-run piece of multiple devices (ROADMAP Queue 1, "
-              "item 5: --dryrun and --mesh production)")
 
 
 @dataclass(frozen=True)
@@ -85,10 +88,50 @@ def make_host_mesh(devices: Optional[int] = None, *,
                     devices=devs)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's (16, 16) or (2, 16, 16) pod mesh: not in the port
-    yet."""
-    raise NotImplementedError(PRODUCTION)
+@dataclass(frozen=True)
+class ProductionMesh:
+    """The pod mesh: ``shape`` over ``axis_names``, one rank a device;
+    the partition axis shards over all of them."""
+    dims: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def n_ranks(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's (16, 16) ("data", "model") mesh of 256 ranks, or
+    its (2, 16, 16) ("pod", "data", "model") mesh of 512."""
+    if multi_pod:
+        return ProductionMesh((2, 16, 16), ("pod", "data", "model"))
+    return ProductionMesh((16, 16), ("data", "model"))
+
+
+def require_world(mesh: ProductionMesh) -> int:
+    """A real run on the production mesh runs in place, as one rank of
+    an initialized ``torch.distributed`` world of exactly
+    ``mesh.n_ranks`` ranks (for example under ``torchrun``). -> this
+    process's rank; raises ``RuntimeError`` otherwise."""
+    import torch.distributed as dist
+    n = mesh.n_ranks
+    have = (dist.get_world_size() if dist.is_available()
+            and dist.is_initialized() else 0)
+    if have != n:
+        raise RuntimeError(
+            f"the {mesh.dims} production mesh runs as one rank of a "
+            f"{n}-rank torch.distributed world (start {n} ranks, e.g. "
+            f"with torchrun, and initialize the process group); this "
+            f"process has " + (f"a {have}-rank world" if have
+                               else "no process group"))
+    return dist.get_rank()
 
 
 def dp_axes(mesh) -> tuple:

@@ -17,9 +17,18 @@ host``) runs the job sharded over N ranks (``core/sharded.py``'s
 ``run_sharded``, the exchange a ``torch.distributed`` all-to-all), in
 memory or ``--ooc`` with a per-worker budget; the ranks follow
 ``--device`` (the card by default; on one card N > 1 ranks exchange over
-gloo, since NCCL refuses two ranks on one GPU). ``--dryrun`` and ``--mesh
-production`` need hundreds of ranks and stop with an error that names
-their ROADMAP item.
+gloo, since NCCL refuses two ranks on one GPU). ``--mesh production``
+runs in place as one rank of a 256-rank ``torch.distributed`` world
+(``torchrun`` with 256 processes; ``launch/mesh.require_world``).
+
+``--dryrun`` touches no device: it counts one superstep of the
+production mesh (``--mesh single|multi|both``: 256 or 512 ranks) at
+``--scale`` (``GRAPH_SCALES``) and writes one JSON record a mesh to
+``--out``, ``{tag}_pregelix-{algo}_{scale}_{mesh}.json``, with the
+reference's keys (``pregel_dryrun``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.pregel_run --dryrun \
+        --algo pagerank --scale paper-large --mesh both --out /tmp/dr
 
 ``main(argv)`` parses and runs; ``run(args, graph=(edges, n))`` runs
 parsed arguments on a graph the caller already holds (``--dataset`` then
@@ -30,14 +39,31 @@ sharded modes) and returns the ``RunResult`` and the report document
 from __future__ import annotations
 
 import argparse
+import json
+import math
+import os
+import time
+from contextlib import contextmanager
+from pathlib import Path
 from typing import Optional
 
 from repro_torch.core.plan import KERNEL_IMPLS
 
 ALGOS = ("pagerank", "sssp", "cc")
-DRYRUN = ("needs hundreds of ranks (the reference lowers a 256/512-"
-          "device mesh); not in the port yet (ROADMAP Queue 1, item 5: "
-          "--dryrun and --mesh production)")
+
+# graph scale ladder: 'paper-large' is Webmap-Large (1.4B vertices / 8B
+# edges); 'bigger-4x' is 4x that — Big(ger) Graph Analytics on a 512-
+# rank multi-pod mesh.
+GRAPH_SCALES = {
+    "paper-large": (1_413_511_390, 8_050_112_169),
+    "bigger-4x": (5_654_045_560, 32_200_448_676),
+}
+# what the dry run's record says of its two approximate figures
+TEMP_NOTE = ("eager peak of the bytes operator outputs hold alive beyond "
+             "the arguments (launch/op_cost.py): no fusion and no buffer "
+             "reuse, not XLA's temp_size_in_bytes")
+NET_NOTE = ("net_bw is a placeholder (the HBM copy rate), not a measured "
+            "link between cards (ROADMAP item 11, PERF.md section 7)")
 
 
 def make_program(algo: str, n: int):
@@ -55,14 +81,22 @@ def build_parser() -> argparse.ArgumentParser:
         description="Run one Pregel job on one device or sharded over "
                     "several ranks (the card unless --device cpu).")
     ap.add_argument("--dryrun", action="store_true",
-                    help="abstract-mesh lowering; " + DRYRUN)
+                    help="count one superstep of the 256/512-rank "
+                         "production mesh on meta tensors over a fake "
+                         "process group (no device) and write its "
+                         "record to --out")
     ap.add_argument("--algo", default="pagerank", choices=ALGOS)
-    ap.add_argument("--mesh", default=None,
-                    choices=["host", "production"],
-                    help="host = a 1-D mesh of --devices ranks (default: "
-                         "one a card, one on the CPU) through run_sharded; "
-                         "production = the (16, 16) pod mesh, which "
-                         + DRYRUN)
+    ap.add_argument("--scale", default="paper-large",
+                    choices=list(GRAPH_SCALES))
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both", "host",
+                             "production"],
+                    help="--dryrun: single|multi|both pod mesh (256 / 512 "
+                         "ranks). Real runs: host = a 1-D mesh of "
+                         "--devices ranks (default: one a card, one on "
+                         "the CPU) through run_sharded; production = the "
+                         "(16, 16) pod mesh, run in place as one rank of "
+                         "a 256-rank torch.distributed world (torchrun)")
     ap.add_argument("--devices", type=int, default=0,
                     help="run the job SHARDED over this many ranks via "
                          "run_sharded (one process a rank on --device, "
@@ -156,18 +190,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "repro_torch.obs.report")
     ap.add_argument("--explain", action="store_true",
                     help="print the plan-audit ledger after the run")
+    ap.add_argument("--tag", default="baseline",
+                    help="--dryrun: the records' file name prefix")
+    ap.add_argument("--out", default="results/dryrun",
+                    help="--dryrun: the records' directory")
     return ap
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parse and check the arguments; stops (``ap.error``) on a mode of
-    the multi-device slice and on inconsistent flags."""
+    """Parse and check the arguments; stops (``ap.error``) on
+    inconsistent flags."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.dryrun:
-        ap.error("--dryrun " + DRYRUN)
-    if args.mesh == "production":
-        ap.error("--mesh production " + DRYRUN)
+    if args.dryrun:   # touches no device
+        return args
     if args.devices < 0:
         ap.error(f"--devices {args.devices}: a rank count is positive")
     if args.recover and not args.checkpoint_dir:
@@ -199,7 +235,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def sharded(args: argparse.Namespace) -> bool:
     """Does ``args`` select the sharded driver?"""
-    return args.devices > 1 or args.mesh == "host"
+    return args.devices > 1 or args.mesh in ("host", "production")
+
+
+def plan_of(args: argparse.Namespace):
+    """The plan the flags name, or "auto" under ``--auto-plan``."""
+    from repro_torch.core import PhysicalPlan
+    return "auto" if args.auto_plan else PhysicalPlan(
+        join=args.join, groupby=args.groupby, connector=args.connector,
+        sender_combine=bool(args.sender_combine),
+        partition=args.partition, kernel_impl=args.kernel_impl)
 
 
 def _largest_half_divisor(n: int) -> int:
@@ -213,16 +258,15 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None,
     ``graph=(edges, n)`` stands in for the ``--dataset`` lookup; ``pool``
     (a ``core.sharded.RankPool``) runs the sharded modes on existing
     ranks. -> (RunResult, report dict or None)."""
-    from repro_torch.core import PhysicalPlan, gather_values, load_graph
+    from repro_torch.core import gather_values, load_graph
     from repro_torch.obs import (explain, fmt_plan, memwatch,
                                  progress_line, report, trace,
                                  write_chrome_trace)
     from repro_torch.runtime import faults
 
-    plan = "auto" if args.auto_plan else PhysicalPlan(
-        join=args.join, groupby=args.groupby, connector=args.connector,
-        sender_combine=bool(args.sender_combine),
-        partition=args.partition, kernel_impl=args.kernel_impl)
+    if args.mesh == "production":   # refuse before loading anything
+        _join_production_world(args.device)
+    plan = plan_of(args)
     if graph is None:
         from repro_torch.graph import DATASETS
         graph = DATASETS[args.dataset]()
@@ -388,8 +432,11 @@ def _run_sharded(args, vert, program, plan, kimp, show, ft_kw, pool):
     mode label)."""
     from repro_torch.core.sharded import run_sharded
     from repro_torch.launch.mesh import make_host_mesh
-    mesh = make_host_mesh(args.devices or None, device=args.device)
-    n_dev = mesh.n_workers
+    if args.mesh == "production":   # in place, this process one rank
+        mesh, n_dev = None, _join_production_world(args.device)
+    else:
+        mesh = make_host_mesh(args.devices or None, device=args.device)
+        n_dev = mesh.n_workers
     ooc_kw, tier = {}, ""
     if args.ooc:
         per_worker = args.parts // n_dev
@@ -411,8 +458,194 @@ def _run_sharded(args, vert, program, plan, kimp, show, ft_kw, pool):
     return res, f"sharded x{n_dev} devices{tier}"
 
 
+def _join_production_world(device: str) -> int:
+    """The production mesh's world: under ``torchrun`` (its environment
+    names the world) join it, one rank a card over NCCL on CUDA, gloo
+    on the CPU; then require exactly 256 ranks. -> the rank count."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh, require_world
+    mesh = make_production_mesh()
+    if not dist.is_initialized() and "TORCHELASTIC_RUN_ID" in os.environ:
+        if device == "cuda":
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    require_world(mesh)
+    return mesh.n_ranks
+
+
+# ---------------------------------------------------------------------
+# the dry run: rank 0's superstep of the production mesh, counted
+# ---------------------------------------------------------------------
+
+def dryrun_capacities(n_vertices: int, n_edges: int, P_total: int):
+    """Per-partition vertex/edge slot capacities the dry run counts with
+    (the load_graph slack factors applied to uniform partitioning)."""
+    Np = int(math.ceil(n_vertices / P_total * 1.3)) + 1
+    Ep = int(math.ceil(n_edges / P_total * 1.2)) + 1
+    return Np, Ep
+
+
+def abstract_graph_state(n_vertices: int, n_edges: int, P_total: int,
+                         program, plan, mesh, *, p_local: int = 1):
+    """The state rank 0 of ``mesh`` holds: its ``p_local`` partitions of
+    the P_total-partition graph as ``meta`` tensors (shapes and dtypes,
+    no data), and the EngineConfig of a rank of the mesh's fake group
+    with the exchange inside the step. -> (vert, msg, gs, ec)."""
+    from repro_torch.core.connector import ShardAxis
+    from repro_torch.core.relations import (empty_msgs, empty_vertices,
+                                            init_gs)
+    from repro_torch.core.superstep import EngineConfig
+    Np, Ep = dryrun_capacities(n_vertices, n_edges, P_total)
+    if plan.sender_combine:
+        cap = min(int((Ep / P_total + 8) * 1.5), Np + 8)
+    else:
+        cap = int((Ep / P_total + 8) * 1.5)
+    ec = EngineConfig(n_parts=P_total, bucket_cap=max(cap, 8),
+                      frontier_cap=int(Np * plan.frontier_capacity) + 8,
+                      axis_name=ShardAxis(0, mesh.n_ranks, None, "fake"),
+                      exchange_apart=False)
+    vert = empty_vertices(p_local, Np, Ep, program.value_dims, "meta")
+    msg = empty_msgs(p_local, P_total * ec.bucket_cap, program.msg_dims,
+                     "meta")
+    gs = init_gs(program.agg_dims, "meta")
+    return vert, msg, gs, ec
+
+
+def dryrun_auto_plan(program, n_vertices: int, n_edges: int, P_total: int,
+                     machine):
+    """``plan="auto"`` of the dry run: one static choice at superstep-0
+    statistics (every vertex active) on ``machine``; the host drivers
+    re-choose mid-run, the dry run cannot."""
+    from repro_torch.planner import GraphStats, Observation, choose
+    Np, Ep = dryrun_capacities(n_vertices, n_edges, P_total)
+    g = GraphStats(n_vertices=n_vertices, n_edges=n_edges,
+                   n_partitions=P_total, vertex_capacity=Np,
+                   edge_capacity=Ep, value_dims=program.value_dims,
+                   msg_dims=program.msg_dims)
+    return choose(program, g, Observation(frontier_density=1.0),
+                  machine=machine)[0]
+
+
+@contextmanager
+def fake_group(world: int):
+    """A default process group of ``world`` ranks with this process as
+    rank 0, over c10d's ``fake`` backend: its collectives move nothing
+    and accept meta tensors. Destroyed on exit; refused when a default
+    group already exists (the dry run would replace it)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("the dry run stands up its own fake process "
+                           "group: a default group already exists")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def pregel_dryrun(algo: str, scale: str, mesh_kind: str, plan) -> dict:
+    """Count rank 0's superstep of the production mesh (``mesh_kind``
+    "multi": 512 ranks, else 256) at ``scale``: the step runs on meta
+    tensors over a fake group of the mesh's size, the all-to-all and the
+    all-reduces inside it, under ``launch/op_cost.measure``. Every rank
+    holds the same shapes, so rank 0 stands for every device. ``plan``
+    "auto" is chosen once, at superstep-0 statistics, with
+    ``H100_MACHINE``. -> the reference's record, priced with
+    ``H100_MACHINE``."""
+    import dataclasses
+
+    from repro_torch.core.superstep import make_superstep
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.planner.cost import H100_MACHINE as m
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    P_total = mesh.n_ranks
+    n_v, n_e = GRAPH_SCALES[scale]
+    program = make_program(algo, n_v)
+    if plan == "auto":
+        plan = dryrun_auto_plan(program, n_v, n_e, P_total, m)
+        print(f"  auto-plan -> join={plan.join} groupby={plan.groupby} "
+              f"connector={plan.connector} "
+              f"sender_combine={plan.sender_combine}", flush=True)
+    vert, msg, gs, ec = abstract_graph_state(n_v, n_e, P_total, program,
+                                             plan, mesh)
+    t0 = time.time()
+    with fake_group(P_total):
+        step = make_superstep(program, plan, ec)
+        cost = op_cost.measure(step, vert, msg, gs)
+    wall = time.time() - t0
+    terms = {"compute_s": cost.flops / m.peak_flops,
+             "memory_s": cost.bytes / m.hbm_bw,
+             "collective_s": cost.coll_bytes / m.net_bw}
+    return {
+        "arch": f"pregelix-{algo}", "shape": scale, "mesh": mesh_kind,
+        "status": "ok", "kind": "superstep", "chips": P_total,
+        "plan": dataclasses.asdict(plan),
+        # the probe's wall time: there is no compile
+        "compile_s": round(wall, 2),
+        "memory": {
+            "argument_bytes": cost.argument_bytes,
+            "temp_bytes": cost.peak_temp_bytes,
+            "total_per_device_bytes": (cost.argument_bytes +
+                                       cost.peak_temp_bytes),
+            "arguments": {"vertex": op_cost.nbytes(vert),
+                          "message": op_cost.nbytes(msg),
+                          "global": op_cost.nbytes(gs)},
+            "temp_is": TEMP_NOTE,
+        },
+        "per_device": {"flops": cost.flops, "bytes": cost.bytes,
+                       "collective_bytes": cost.coll_bytes,
+                       "collectives": dict(cost.coll_detail)},
+        "roofline": {**terms,
+                     "dominant": max(terms, key=terms.get),
+                     "bound_s": max(terms.values())},
+        "machine": {"name": "H100_MACHINE",
+                    "peak_flops": m.peak_flops, "hbm_bw": m.hbm_bw,
+                    "net_bw": m.net_bw, "net_bw_is": NET_NOTE},
+    }
+
+
+def dryrun(args: argparse.Namespace) -> list:
+    """``--dryrun``: one record a mesh of ``--mesh`` into ``--out``.
+    -> [(file path, record)]."""
+    plan = plan_of(args)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    written = []
+    for mk in meshes:
+        name = f"{args.tag}_pregelix-{args.algo}_{args.scale}_{mk}.json"
+        print(f"[pregel-dryrun] {args.algo} x {args.scale} x {mk}",
+              flush=True)
+        try:
+            rec = pregel_dryrun(args.algo, args.scale, mk, plan)
+        except Exception as e:  # noqa: BLE001 - the record carries it
+            import traceback
+            rec = {"status": "error", "error": repr(e),
+                   "traceback": traceback.format_exc()[-3000:]}
+        path = out_dir / name
+        path.write_text(json.dumps(rec, indent=1))
+        if rec["status"] == "ok":
+            r = rec["roofline"]
+            print(f"  ok probe={rec['compile_s']}s "
+                  f"mem/dev={rec['memory']['total_per_device_bytes']/2**30:.2f}GiB "
+                  f"dominant={r['dominant']}", flush=True)
+        else:
+            print("  error:", rec["error"][:200], flush=True)
+        written.append((path, rec))
+    return written
+
+
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    if args.dryrun:
+        recs = dryrun(args)
+        return 0 if all(r["status"] == "ok" for _, r in recs) else 1
+    run(args)
     return 0
 
 

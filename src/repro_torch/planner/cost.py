@@ -505,10 +505,8 @@ def op_calibrate(program, plan: PhysicalPlan, g: GraphStats,
     ``meta`` tensors (shapes and dtypes, no data and no device) under the
     operator counter — the ground truth the analytic constants are
     calibrated against. Returns a ``launch.op_cost.Cost``."""
-    import torch
-
-    from repro_torch.core.relations import (N_OVERFLOW, GlobalState, MsgRel,
-                                            VertexRel)
+    from repro_torch.core.relations import (empty_msgs, empty_vertices,
+                                            init_gs)
     from repro_torch.core.superstep import EngineConfig, make_superstep
     from repro_torch.launch import op_cost
 
@@ -517,20 +515,11 @@ def op_calibrate(program, plan: PhysicalPlan, g: GraphStats,
                       frontier_cap=refit_frontier_cap(
                           g, obs.frontier_density))
     step = make_superstep(program, plan, ec)
-    P, Np, Ep = g.n_partitions, g.vertex_capacity, g.edge_capacity
-    e = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
-                                                     device="meta")
-    i32, b = torch.int32, torch.bool
-    vert = VertexRel(vid=e(P, Np, dt=i32), halt=e(P, Np, dt=b),
-                     value=e(P, Np, g.value_dims),
-                     edge_src=e(P, Ep, dt=i32), edge_dst=e(P, Ep, dt=i32),
-                     edge_val=e(P, Ep))
-    msg = MsgRel(dst=e(P, P * cap, dt=i32),
-                 payload=e(P, P * cap, g.msg_dims),
-                 valid=e(P, P * cap, dt=b))
-    gs = GlobalState(halt=e(dt=b), aggregate=e(program.agg_dims),
-                     superstep=e(dt=i32), overflow=e(N_OVERFLOW, dt=i32),
-                     active_count=e(dt=i32), msg_count=e(dt=i32))
+    P = g.n_partitions
+    vert = empty_vertices(P, g.vertex_capacity, g.edge_capacity,
+                          g.value_dims, "meta")
+    msg = empty_msgs(P, P * cap, g.msg_dims, "meta")
+    gs = init_gs(program.agg_dims, "meta")
     return op_cost.measure(step, vert, msg, gs)
 
 

@@ -7,6 +7,7 @@ and every sum here is a sum of small integers. Reachability's matrix
 lives in test_torch_algorithms_reach.py, so the two run on separate
 workers.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import itertools
 

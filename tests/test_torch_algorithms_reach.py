@@ -2,6 +2,7 @@
 end through ``run_host`` under every plan of join x group-by x connector
 x sender combine (a max fold: every field equal). Split from
 test_torch_algorithms.py so the two run on separate workers."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import numpy as np
 import pytest
 

@@ -1,6 +1,7 @@
 """The kernel build's library key: a library is named by a hash of its
 source, of every shared header in ``csrc/`` and of the flags, so an
 edited header rebuilds every library (no ``nvcc`` needed to check)."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import pytest
 
 from repro_torch.kernels import build

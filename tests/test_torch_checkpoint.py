@@ -4,6 +4,7 @@ from the other, the elastic repartition against the reference's,
 resume and supervised recovery against the uninterrupted run, and the
 host-driver cases of tests/test_faults.py and test_checkpoint_ft.py with
 the port's own ``faults``."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import os
 

@@ -1,9 +1,11 @@
 """chip_smoke.py's phases 10 (mutations and the library programs), 11
 (checkpoints and recovery), 12 (the planner), 13 (out-of-core), 14 (the
-CLI) and 15 (the sharded driver), rehearsed on the CPU at a small graph500 scale through the port's plain
-path: the same runs and the same checks against scipy and closed forms
+CLI), 15 (the sharded driver) and 16 (the production dry run and the
+examples), rehearsed on the CPU at a small graph500 scale through the
+port's plain path: the same runs and the same checks against scipy and closed forms
 as on the card, so a fault in the phases' own logic shows here and not
 first on the card."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import sys
 from pathlib import Path
 
@@ -138,3 +140,19 @@ def test_phase_15_on_the_cpu():
     assert rec["recovery"][0]["healthy_workers"] == 1
     assert out["e_cli"]["exchange_line"].endswith(
         "supersteps on 2 workers (gloo)")
+
+
+def test_phase_16_on_the_cpu():
+    """Phase 16 on the CPU: the three dry-run subprocesses with each
+    record held to the analytic figures, and the examples on --device
+    cpu held to scipy; (b)'s reading needs phase 3's card peak, so it is
+    left out (no max_memory_allocated in the CPU's phase-3 stats)."""
+    out = cs.production_phase({}, device="cpu")
+    assert "memory" not in out
+    assert set(out["dryrun"]) == {f"{a}_{m}" for a in cs.DRYRUN_ALGOS
+                                  for m in ("single", "multi")}
+    assert out["dryrun"]["pagerank_single"]["collectives"][
+        "all-to-all"] == 507_456_630
+    assert out["examples"]["quickstart"]["reached"] > 0
+    assert out["examples"]["pagerank_webmap"]["recovered_superstep"] == 10
+    assert out["examples"]["path_merge_genomix"]["survivors"] == 100

@@ -3,6 +3,7 @@ reference on the CPU: the engine gather exactly, +-inf, NaN and -1 lanes
 included, with no layout on the port's side. Also the port's copy of the
 reference's host layout (off the main path), element for element, and
 the device-based kernel choice of kernels/backend.py."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ active/messages sequences and events, and SSSP/CC values must match
 exactly; PageRank values to rtol 1e-5, atol 1e-7 (float sums are ordered
 differently).
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import numpy as np

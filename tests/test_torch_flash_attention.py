@@ -8,6 +8,7 @@ online), which moves outputs of magnitude ~1 by ~1e-7. bfloat16 to atol
 2e-2 as in tests/test_kernels.py: outputs are rounded to bf16 (8 bits),
 so a sum-order difference can flip the last bit of values up to ~4.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ fold of the same window (CUB's order) must not, on a case built for it.
 Also the batched (P, M) engine fold against the reference engine's,
 partition by partition.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ order them in a way the port cannot replay. Payloads are positive, as
 the engine's sums (PageRank contributions) are, so that the bound holds
 without cancellation.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,8 @@
 """The port stands alone: it imports torch and numpy, never JAX and never
 the JAX package (``repro``) — checked by importing it with JAX made
-unimportable, and by scanning its sources and chip_smoke.py."""
+unimportable, and by scanning its sources, chip_smoke.py and the port's
+examples (``examples/*_torch.py``)."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import ast
 import os
 import subprocess
@@ -45,6 +47,12 @@ def test_imports_with_jax_unimportable():
             "    importlib.import_module(m)\n"
             "sys.path.insert(0, sys.argv[1])\n"
             "import chip_smoke\n"
+            "import importlib.util, pathlib\n"
+            "for f in sorted(pathlib.Path(sys.argv[1], 'examples')"
+            ".glob('*_torch.py')):\n"
+            "    spec = importlib.util.spec_from_file_location(f.stem, f)\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=120,
@@ -65,7 +73,9 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_repro_import_in_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(files) - len(list(PORT.rglob("*.py"))) == 4
     assert len(files) > 10
     for f in files:
         for name in _imports(f):

@@ -3,6 +3,7 @@ inputs: norms, RoPE, the SwiGLU MLP, embedding and the tied unembedding.
 Float32 throughout; atol 1e-5 covers the two libraries' different
 summation orders in the matrix products (values of magnitude ~1, d
 <= 256 terms), elementwise ops agree to a few ulp."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

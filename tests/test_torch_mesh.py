@@ -4,6 +4,7 @@ planner that the reference computes the same way — ``ExchangeReadiness``,
 ``_exchange_wire_bytes``, ``_fit_devices``, the cost model's network
 axis and the controller's exchange EWMA — each held to the JAX package's
 value at rel 1e-12 (integers and booleans exactly)."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import pytest
 import torch
 
@@ -30,8 +31,12 @@ def test_make_host_mesh_counts():
     assert mesh.dp_axes(m) == ("data",) and mesh.batch_axis_size(m) == 2
     with pytest.raises(RuntimeError, match="core"):
         mesh.make_host_mesh(10 ** 6, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.make_production_mesh()
+    # the pod mesh is a description; a real run on it needs a world of
+    # exactly its 256 ranks
+    prod = mesh.make_production_mesh()
+    assert (prod.n_ranks, prod.axis_names) == (256, ("data", "model"))
+    with pytest.raises(RuntimeError, match="256"):
+        mesh.require_world(prod)
 
 
 def test_the_transport_rule_on_one_card(monkeypatch):

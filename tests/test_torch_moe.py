@@ -3,6 +3,7 @@ qwen2-moe config (d 128, 8 experts padded to 16, top-2, a shared expert,
 float32), with the weights carried across by ``params_from_numpy``:
 the router's gates and expert choice, the aux loss, and both dispatch
 plans. atol 1e-5: the same float32 products summed in another order."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import jax

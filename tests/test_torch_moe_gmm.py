@@ -7,6 +7,7 @@ the oracle at 1e-4): both sides accumulate the same float32 products of
 magnitude ~1 over d <= 128 terms in another order. The tile map is
 integer and must agree exactly.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ tombstones, inserts routed at ``mutation_cap`` and resolved, resurrection
 of a messaged dead vertex, and own-edge rewrites. Every payload is
 integer-valued, so float sums are exact and every field must be equal.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ port Chrome trace passes both packages' validators. Then the
 counterparts of the reference's own tracing tests (``tests/test_obs.py``)
 on the port: the disabled path, export and its schema check, the export
 CLI, and a traced disk-tier run of ``run_out_of_core``."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import json
 import math

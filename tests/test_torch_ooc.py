@@ -12,6 +12,7 @@ whole connector x storage matrix: a storage policy changes no value
 and a connector changes only the order of PageRank's float sums, which
 the rtol covers — each JAX run costs seconds of compiles.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import numpy as np

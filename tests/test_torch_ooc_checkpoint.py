@@ -5,6 +5,7 @@ resumes in the other and ends on the uninterrupted run (exact for SSSP,
 rtol 1e-5 for PageRank). Resume, crash mid-checkpoint, recovery from a
 WorkerFailure and from corrupt pages, and the planner's hysteresis state
 carried in the meta."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import json
 
 import numpy as np

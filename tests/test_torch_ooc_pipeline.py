@@ -12,6 +12,7 @@ superstep. ``plan="auto"`` makes the reference's initial plan and
 switches, storage included. On the CPU torch runs synchronously, so
 these tests check parity, not overlap.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ equals the reference's on its emulated machine leg for leg, ``rank``
 orders alike, the controllers decide alike superstep by superstep,
 ``migrate_msgs`` and the calibration fit are exact, and the H100 machine
 prices the port's own kernels."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import numpy as np

@@ -2,6 +2,7 @@
 the CPU: the same initial plan, the same plan switches at the same
 supersteps, the same superstep counts and statistics, and the same
 results; with calibration, kernel pinning, checkpoints and recovery."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import numpy as np

@@ -7,8 +7,10 @@ of core on the disk tier; SSSP under ``--recover`` with a fault plan in
 final plan and switch supersteps, equal SSSP and CC values and PageRank
 within rtol 1e-5, and prints a schema-valid report. ``--devices`` and
 ``--mesh host`` parse into the sharded driver (run in
-``tests/test_torch_sharded.py``); ``--dryrun`` and ``--mesh production``
-stop with an error that names their ROADMAP item."""
+``tests/test_torch_sharded.py``); ``--dryrun`` writes its record with no
+device (``tests/test_torch_dryrun.py``), and ``--mesh production``
+outside a 256-rank world stops with an error that names the count."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import json
 import re
 import sys
@@ -151,18 +153,26 @@ def test_cli_matches_the_reference_cli(mode, tmp_path, monkeypatch,
 @pytest.mark.parametrize("argv", [["--dryrun"], ["--devices", "2"],
                                   ["--mesh", "host"],
                                   ["--mesh", "production"]])
-def test_multi_device_modes_stop_with_their_slice(argv, capsys):
-    """--devices N and --mesh host select the sharded driver; the modes
-    that need hundreds of ranks still stop, naming their ROADMAP item."""
+def test_multi_device_modes_stop_with_their_slice(argv, capsys, tmp_path):
+    """--devices N, --mesh host and --mesh production select the sharded
+    driver; --dryrun writes its record at 256 ranks with no device, and
+    --mesh production outside a 256-rank world stops, naming the
+    count."""
     if argv in (["--devices", "2"], ["--mesh", "host"]):
         args = tcli.parse_args(argv + ["--device", "cpu"])
         assert tcli.sharded(args)
         return
-    with pytest.raises(SystemExit) as e:
+    if argv == ["--dryrun"]:
+        assert tcli.main(argv + ["--device", "cpu", "--mesh", "single",
+                                 "--out", str(tmp_path)]) == 0
+        rec = json.loads((tmp_path / "baseline_pregelix-pagerank_"
+                          "paper-large_single.json").read_text())
+        assert (rec["status"], rec["chips"]) == ("ok", 256)
+        assert "ROADMAP" not in capsys.readouterr().out
+        return
+    assert tcli.sharded(tcli.parse_args(argv + ["--device", "cpu"]))
+    with pytest.raises(RuntimeError, match="256-rank"):
         tcli.main(argv + ["--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1, item 5" in err and "hundreds of ranks" in err
 
 
 def test_the_card_is_the_default(monkeypatch, capsys):

@@ -1,6 +1,7 @@
 """The port's relations against the JAX reference on the CPU: load_graph
 element for element (hash and range partitioning), out_degrees,
 gather_values, and the state-transfer functions."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import jax.numpy as jnp

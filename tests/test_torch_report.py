@@ -9,6 +9,7 @@ on the port: the disabled path, a disk-tier out-of-core report that
 meets the acceptance criteria, ``compare``, the decision log, the
 validator, the report CLI, the budget gauge, ``attach`` and the writer.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import json
 import math

@@ -8,6 +8,7 @@ float sums included — np.array_equal, NaN positions matched. The readable
 oracles agree exactly for min/max and to rtol 1e-6 for sums, which
 ``associative_scan`` brackets differently.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

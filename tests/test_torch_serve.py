@@ -14,6 +14,7 @@ another order; logits have magnitude ~1). A teacher-forcing test holds
 the decode path to a prefill over the prompt plus the tokens generated
 so far — the property the clamped writes break.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 
 import jax

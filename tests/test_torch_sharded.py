@@ -27,6 +27,7 @@ and the plain kernel versions.
   ``pregel_run --devices 2 --device cpu`` prints the exchange line and
   equals the single-device run.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import functools
 import json

@@ -15,6 +15,7 @@ own tiered store with a 16-KiB DRAM budget spilling under
   and a memory sample a superstep, both ranks' DRAM summed;
 * a mutating program is refused.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import pathlib
 

@@ -3,6 +3,7 @@ buffer cache's budget, eviction policies and pins, the background I/O
 engine, the spill files both packages read, and the disk tier under
 ``run_out_of_core`` — bit for bit with the pure-DRAM tier, for every
 eviction policy and both executors."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import threading
 import time
 

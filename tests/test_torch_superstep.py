@@ -10,6 +10,7 @@ min programs. PageRank values and aggregates may differ by rounding
 (rtol 1e-5, atol 1e-7): the port's scatter-add and segmented fold order
 float sums differently from XLA's scatter and ``associative_scan``.
 """
+import _torch_threads  # noqa: F401  (first: see the module)
 import dataclasses
 import itertools
 

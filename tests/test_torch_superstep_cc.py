@@ -2,6 +2,7 @@
 same state, across join x group-by x connector x sender_combine x
 partition, for connected components: every field exactly (a min program).
 Helpers live in test_torch_superstep.py."""
+import _torch_threads  # noqa: F401  (first: see the module)
 import pytest
 
 from test_torch_superstep import PLANS, _check_plan
