@@ -23,9 +23,12 @@ and never prints its last line):
    edge weights, pointers off the 16-byte grid) must match
    edge_gather_ref exactly. Flash
    attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
-   bf16, causal) and small cases (f32 and bf16, causal or not, hd 32/64/
-   128, ragged S, Sq < Sk, a query block whose second warpgroup holds no
-   row, GQA through strided views); the grouped matmul at the prefill (T
+   bf16, causal), at gemma3-12b's (B 8, S 2048, 16 heads over 8, hd 240),
+   at zamba2-1.2b's shared block's (B 8, S 2048, 32 heads, hd 64)
+   and small cases (f32 and bf16, causal or not, hd 32/64/128 and the
+   head dims the kernel runs padded, 8, 16, 80, 120, 160, 240, and 256,
+   ragged S, Sq < Sk, a query block whose second warpgroup holds no row,
+   GQA through strided views, also at hd 240 and 120); the grouped matmul at the prefill (T
    65,536 rows, d 2048, f 1408 and back, 64 groups of which 60 live) and
    decode (T 32) shapes, empty groups, one group holding every row, a
    group of one row, a group that ends mid-tile before a non-empty one, T
@@ -74,8 +77,9 @@ and never prints its last line):
    full width cut to 2 layers in float32: every decode step's logits vs
    the teacher-forced prefill, relative L2 <= 1e-4 and the same ids.
 9. serving kernels' timings at the serving path's shapes (flash: SDPA
-   as the library yardstick; grouped matmul: torch._grouped_mm where
-   this torch has it). The grouped matmul at prefill in both orientations
+   as the library yardstick, also at gemma3-12b's global layers, hd 240,
+   SDPA there on K/V repeated to 16 heads; grouped matmul:
+   torch._grouped_mm where this torch has it). The grouped matmul at prefill in both orientations
    (w_gate/w_up: d 2048 -> f 1408; w_down: d 1408 -> f 2048) and at
    decode: the kernel's wrapper alone (ms), the model's entry point
    (wrapper_ms: one launch, no other op), the host's time to enqueue one
@@ -197,11 +201,33 @@ and never prints its last line):
    fold launched), the webmap PageRank within rtol 1e-4 of scipy's power
    iteration with its checkpoint repartitioned onto P = 3, PathMerge's
    mass equal to n (both kernels launched in each).
+17. the decoders of slice 11 at reduced size (d 128, float32, window 8;
+   gemma3-12b cut to 6 layers so that its global layer runs), the same
+   weights served on the card and on the CPU, prompts 12 (local rings
+   wrap misaligned) and 16, and 6 (within the window) on gemma3 and
+   h2o-danube: greedy ids equal, logits within atol 1e-4,
+   every decode step on the card within atol 1e-4 of a teacher-forced
+   prefill; gemma3 and h2o-danube with int8 K/V caches: codes within one,
+   logits within 2e-2.
+18. gemma3-12b at full width (48 layers, d 3840, hd 240, window 1024,
+   vocab 262144, bf16, ~11.6e9 seeded random parameters) through serve():
+   batch 8, prompt 2048, 32 new tokens; exactly 8 flash launches (one a
+   global layer); prefill ms, decode ms a token, peak memory, the same
+   warm; the last step's logits against a teacher-forced prefill
+   (relative L2 <= 0.5); then its 6-layer cut in float32 at prompt 1100,
+   every decode step within relative L2 1e-4 of a teacher-forced
+   prefill.
+19. zamba2-1.2b (6 flash launches a prefill, hd 64) and falcon-mamba-7b
+   (64 layers, no cut) at full width as phase 18, then their float32
+   cuts (6 and 2 layers) at prompt 300, as phase 18's (falcon's prefill
+   not profiled: its scan's 143,255 kernels a call cost the profiler
+   about 2 minutes).
 
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
-kernels, on phase 12's to 16's runs), max abs err, kernel /
+kernels, on phase 12's to 16's runs; for flash, on phase 8's and 17's
+to 19's), max abs err, kernel /
 plain / bound / library ms. The last line is {"ok": true, "device":
 {...}}.
 """
@@ -240,6 +266,10 @@ P = 4
 # (prefill B*S*top_k, decode B*top_k) over 64 expert groups, 60 live
 SERVE_SHAPE = dict(BH=128, S=2048, hd=128, T_pre=65536, T_dec=32, d=2048,
                    f=1408, E=64, live=60)
+# gemma3-12b's global layers at the same batch and prompt (phase 18)
+GEMMA_FLASH_SHAPE = dict(B=8, S=2048, H=16, KV=8, hd=240)
+# zamba2-1.2b's shared block at the same batch and prompt (phase 19)
+ZAMBA_FLASH_SHAPE = dict(B=8, S=2048, H=32, KV=32, hd=64)
 # the kernels each main path must launch
 GRAPH_KERNELS = ("segment_combine", "csr_spmv")
 SERVING_KERNELS = ("flash_attention", "moe_gmm")
@@ -2487,7 +2517,10 @@ def close_in_dtype(got, want, what: str) -> float:
 
 def flash_parity() -> float:
     """flash_attention (kernel) vs attention_ref on the card, over the
-    serving path's prefill shape and small edge cases."""
+    serving path's prefill shape, gemma3-12b's (hd 240, GQA 16 over 8),
+    zamba2-1.2b's shared block (hd 64, 32 heads) and small edge cases,
+    at every head dim the kernel is built for and at head dims it runs
+    padded (8, 16, 80, 120, 160, 240)."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
@@ -2510,6 +2543,13 @@ def flash_parity() -> float:
                           # holds no row; ragged Sq < Sk over two blocks
                           (1, 130, 130, hd, causal, dt),
                           (2, 200, 260, hd, causal, dt)]
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in (8, 16, 80, 120, 160, 240, 256):
+            for causal in (True, False):
+                cases += [(2, 100, 100, hd, causal, dt),
+                          (2, 37, 300, hd, causal, dt),
+                          (1, 130, 130, hd, causal, dt),
+                          (2, 200, 260, hd, causal, dt)]
     for BH, Sq, Sk, hd, causal, dt in cases:
         q, k, v = rnd(BH, Sq, hd, dt=dt), rnd(BH, Sk, hd, dt=dt), \
             rnd(BH, Sk, hd, dt=dt)
@@ -2520,14 +2560,27 @@ def flash_parity() -> float:
             f"causal={causal} {dt}"))
     # GQA through ops, (B, S, H, hd) strided views of one projection
     for dt in (torch.float32, torch.bfloat16):
-        for H, KV in ((16, 16), (8, 2), (4, 1)):
-            B, S, hd = 2, 150, 128
+        for H, KV, hd in ((16, 16, 128), (8, 2, 128), (4, 1, 128),
+                          (16, 8, 240), (4, 2, 120)):
+            B, S = 2, 150
             qkv = rnd(B, S, H + 2 * KV, hd, dt=dt)
             q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
             err = max(err, close_in_dtype(
                 fa_ops.flash_attention(q, k, v, causal=True),
                 fa_ops.attention_gqa_ref(q, k, v, causal=True),
-                f"flash_attention GQA H={H} KV={KV} {dt}"))
+                f"flash_attention GQA H={H} KV={KV} hd={hd} {dt}"))
+    # gemma3-12b's global layers and zamba2-1.2b's shared block at the
+    # serving batch and prompt
+    for name, gs in (("gemma3-12b", GEMMA_FLASH_SHAPE),
+                     ("zamba2-1.2b", ZAMBA_FLASH_SHAPE)):
+        q = rnd(gs["B"], gs["S"], gs["H"], gs["hd"], dt=torch.bfloat16)
+        k, v = (rnd(gs["B"], gs["S"], gs["KV"], gs["hd"], dt=torch.bfloat16)
+                for _ in range(2))
+        err = max(err, close_in_dtype(
+            fa_ops.flash_attention(q, k, v, causal=True),
+            fa_ops.attention_gqa_ref(q, k, v, causal=True),
+            f"flash_attention {name} shape {gs}"))
+        del q, k, v
     return err
 
 
@@ -2599,13 +2652,16 @@ def qwen_config(dispatch: str = "sort"):
         cfg.moe, dispatch=dispatch))
 
 
-def greedy(cfg, params, prompts, max_new: int):
+def greedy(cfg, params, prompts, max_new: int, quantize=False,
+           caches_out=None):
     """Prefill + greedy decode through the port's step functions, on the
-    device of ``params``. -> (ids (B, max_new), logits (B, max_new, V))."""
+    device of ``params``. -> (ids (B, max_new), logits (B, max_new, V));
+    the caches after the last step go into the list ``caches_out``."""
     import torch
     from repro_torch.models import make_decode_step, make_prefill_step
     S = prompts.shape[1]
-    tok, caches, logits = make_prefill_step(cfg, max_len=S + max_new)(
+    tok, caches, logits = make_prefill_step(
+        cfg, max_len=S + max_new, quantize=quantize)(
         params, {"tokens": prompts})
     decode = make_decode_step(cfg)
     ids, out = [tok], [logits]
@@ -2613,6 +2669,8 @@ def greedy(cfg, params, prompts, max_new: int):
         tok, caches, logits = decode(params, tok, caches, S + i)
         ids.append(tok)
         out.append(logits)
+    if caches_out is not None:
+        caches_out.append(caches)
     return torch.cat(ids, 1), torch.cat(out, 1)
 
 
@@ -2756,19 +2814,22 @@ def teacher_forced_check(params, cfg, res) -> dict:
     return out
 
 
-def full_width_f32_teacher_forced() -> dict:
-    """qwen2-moe-a2.7b at full width cut to 2 layers, in float32 (TF32
-    off), sort dispatch, on the card: every decode step's logits against a
-    prefill over the prompt plus the tokens generated so far. Float32
-    leaves only the sum order between the two paths, so: relative L2 <=
-    1e-4 and the same greedy ids."""
+def full_width_f32_teacher_forced(cfg=None, layers: int = 2,
+                                  batch: int = 2, prompt_len: int = 300,
+                                  seed: int = 11) -> dict:
+    """``cfg`` (default qwen2-moe-a2.7b, sort dispatch) at full width cut
+    to ``layers`` layers, in float32 (TF32 off), on the card: every decode
+    step's logits against a prefill over the prompt plus the tokens
+    generated so far. Float32 leaves only the sum order between the two
+    paths, so: relative L2 <= 1e-4 and the same greedy ids."""
     import torch
     from repro_torch.models import init_params
-    cfg = dataclasses.replace(qwen_config(), num_layers=2, dtype="float32")
-    g = torch.Generator(device="cuda").manual_seed(11)
+    cfg = dataclasses.replace(cfg or qwen_config(), num_layers=layers,
+                              dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, g, "cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 300), generator=g,
-                            device="cuda", dtype=torch.int32)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=g, device="cuda", dtype=torch.int32)
     new = 5
     ids, logits = greedy(cfg, params, prompts, new)
     worst = 0.0
@@ -2783,17 +2844,18 @@ def full_width_f32_teacher_forced() -> dict:
     if not worst <= 1e-4:
         raise AssertionError(f"f32 full width: decode vs teacher-forced "
                              f"prefill rel L2 {worst}")
-    return {"layers": 2, "batch": 2, "prompt_len": 300, "steps": new - 1,
-            "rel_l2_max": worst}
+    return {"arch": cfg.name, "layers": layers, "batch": batch,
+            "prompt_len": prompt_len, "steps": new - 1, "rel_l2_max": worst}
 
 
-def serving_main_path(batch: int, prompt_len: int, max_new: int):
-    """qwen2-moe-a2.7b (sort dispatch, bf16, random weights from a seeded
-    generator on the card) through repro_torch.launch.serve.serve."""
+def serving_main_path(batch: int, prompt_len: int, max_new: int, cfg=None):
+    """``cfg`` (default qwen2-moe-a2.7b, sort dispatch; bf16, random
+    weights from a seeded generator on the card) through
+    repro_torch.launch.serve.serve, the counts set to 0 just before it."""
     import torch
     from repro_torch.kernels import COUNTERS
     from repro_torch.launch.serve import serve
-    cfg = qwen_config()
+    cfg = cfg or qwen_config()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     res = serve(cfg, preset="full", batch=batch, prompt_len=prompt_len,
@@ -2838,20 +2900,23 @@ def warm_serving_timings(params, cfg, prompts, steps: int = 8) -> dict:
                 decode_ms_each=walls)
 
 
-def profile_serving(params, cfg, prompts, out) -> dict:
+def profile_serving(params, cfg, prompts, out, prefill_too=True) -> dict:
     """Where the serving time goes: device time by kernel for one prefill
-    of the serving batch and for one decode step after it."""
+    of the serving batch (if ``prefill_too``) and for one decode step
+    after it."""
     from repro_torch.models import make_decode_step, make_prefill_step
     S = prompts.shape[1]
     prefill = make_prefill_step(cfg, max_len=S + 1)
     decode = make_decode_step(cfg)
     tok, caches, _ = prefill(params, {"tokens": prompts})
-    res = {"prefill": profile_kernels(
-        lambda: prefill(params, {"tokens": prompts}), 1, out,
-        "serving prefill (batch x prompt)")}
+    res = {}
+    if prefill_too:
+        res["prefill"] = profile_kernels(
+            lambda: prefill(params, {"tokens": prompts}), 1, out,
+            f"{cfg.name} prefill (batch x prompt)")
     res["decode_step"] = profile_kernels(
         lambda: decode(params, tok, caches, S), 3, out,
-        "serving decode step")
+        f"{cfg.name} decode step")
     return res
 
 
@@ -2905,6 +2970,44 @@ def flash_timing(launches: int) -> dict:
                 library_ms=lib_ms,
                 library="F.scaled_dot_product_attention(is_causal=True)",
                 shape=dict(BH=BH, S=S, hd=hd, dtype="bfloat16"),
+                flop=flop, bytes=nbytes, gemma3=flash_timing_gemma())
+
+
+def flash_timing_gemma() -> dict:
+    """flash_attention at gemma3-12b's global layers: B 8, S 2048, 16
+    query heads over 8 KV heads of hd 240 (run at HD 256), bf16, causal,
+    through the model's entry point (fa_ops) on (B, S, H, hd) tensors.
+    The bound counts the function's work at hd 240; the yardstick is SDPA
+    on the same q and on K/V repeated to 16 heads beforehand (untimed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    gs = GEMMA_FLASH_SHAPE
+    B, S, H, KV, hd = (gs[k] for k in ("B", "S", "H", "KV", "hd"))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    run_k = lambda: fa_ops.flash_attention(q, k, v, causal=True)
+    run_p = lambda: fa_ops.attention_gqa_ref(q, k, v, causal=True)
+    err = close_in_dtype(run_k(), run_p(), "flash_attention gemma3 timing")
+    q4 = q.transpose(1, 2).contiguous()
+    k4, v4 = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+              .contiguous() for t in (k, v))
+    run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=True)
+    ms, plain_ms, lib_ms = time_ms(run_k), time_ms(run_p, reps=5), \
+        time_ms(run_l)
+    flop = 2 * 2 * hd * (S * (S + 1) // 2) * B * H
+    nbytes = (2 * B * S * H + 2 * B * S * KV) * hd * 2
+    t_op, t_b = flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S
+    return dict(shape=dict(gs, dtype="bfloat16", kernel_hd=256),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_op, t_b) * 1e3,
+                bound_by="operations" if t_op > t_b else "bytes",
+                library_ms=lib_ms,
+                library="F.scaled_dot_product_attention(is_causal=True), "
+                        "K/V repeated to 16 heads",
                 flop=flop, bytes=nbytes)
 
 
@@ -3018,6 +3121,216 @@ def gmm_timing(launches: int) -> dict:
                 w_down=down, decode=dec)
 
 
+# ------------------------------------------------------------- phases 17-19
+
+DECODERS = ("gemma3-12b", "h2o-danube-3-4b", "falcon-mamba-7b", "zamba2-1.2b")
+WINDOW17 = 8       # phase 17's window: prompts 12 and 16 wrap it
+INT8_TOL = 2e-2    # phase 17's int8 logits, card vs CPU (see decoders_...)
+
+
+def reduced_decoder(arch: str):
+    """``arch`` at reduced() size (d 128, float32) with a window of 8;
+    gemma3 cut to 6 layers, one whole period (5 local + 1 global), so its
+    reduced model reaches the flash kernel."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if "local" in cfg.attn.pattern:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, window=WINDOW17))
+    if arch == "gemma3-12b":
+        cfg = dataclasses.replace(cfg, num_layers=6)
+    return cfg
+
+
+def int8_codes_apart(a, b) -> int:
+    """The largest difference between two int8 caches' codes."""
+    import torch
+    worst = 0
+    for sa, sb in zip(a, b):
+        for name, c in sa.items():
+            for key in ("k8", "v8"):
+                if key in c:
+                    d = (c[key].cpu().int() - sb[name][key].cpu().int())
+                    worst = max(worst, int(d.abs().max()))
+    return worst
+
+
+def decoders_card_vs_cpu(device="cuda") -> dict:
+    """Phase 17: the four decoders at reduced size (``reduced_decoder``),
+    the same weights served on the card and on the CPU, TF32 off, prompts
+    of 12 (local rings wrap misaligned) and 16 (aligned), and on gemma3 and
+    h2o-danube also 6 (within the window: plain causal), 6 new tokens,
+    batch 3: greedy ids equal, logits within atol 1e-4 (float32 through up
+    to 6 layers summed in another order; logits of magnitude ~4); on the
+    card every decode step's logits within atol 1e-4 of a prefill over the
+    prompt and the tokens generated so far, with its argmax. Then gemma3
+    and h2o-danube with int8 K/V caches (prompt 12), card vs CPU: codes
+    within one (the two sides' K/V differ by float32 rounding, so a value
+    at a half-code boundary rounds either way) and logits within 2e-2
+    (one code of a row moves a score by ~max|k| / 127 / sqrt(hd)).
+    ``device="cpu"`` rehearses it here, the CPU against itself."""
+    import copy
+    import torch
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.models import init_params
+    out = {}
+    for arch in DECODERS:
+        cfg = reduced_decoder(arch)
+        cpu = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+        gpu = copy.deepcopy(cpu).to(device)
+        row = {}
+        # a prompt within the window (6) takes the plain causal branch
+        # (window >= S) on models with local layers
+        local = "local" in cfg.attn.pattern
+        for S in (6, 12, 16) if local else (12, 16):
+            prompts = torch.randint(0, cfg.vocab_size, (3, S),
+                                    dtype=torch.int32,
+                                    generator=torch.Generator()
+                                    .manual_seed(4 + S))
+            reset_counters()
+            ids_g, log_g = greedy(cfg, gpu, prompts.to(device), 6)
+            free(device)
+            launches = COUNTERS["flash_attention"].launches
+            ids_c, log_c = greedy(cfg, cpu, prompts, 6)
+            err = max_abs_err(log_g.cpu(), log_c)
+            if not torch.equal(ids_g.cpu(), ids_c) or err > 1e-4:
+                raise AssertionError(
+                    f"phase 17 {arch} prompt {S}: card ids "
+                    f"{ids_g.tolist()} vs CPU {ids_c.tolist()}, logits max "
+                    f"abs err {err}")
+            tf = 0.0
+            for i in range(1, 6):
+                seq = torch.cat([prompts.to(device), ids_g[:, :i]], dim=1)
+                forced, caches = _forced_prefill(gpu, cfg, seq)
+                del caches
+                tf = max(tf, max_abs_err(log_g[:, i], forced))
+                if not torch.equal(forced.argmax(-1).to(torch.int32),
+                                   ids_g[:, i]) or tf > 1e-4:
+                    raise AssertionError(
+                        f"phase 17 {arch} prompt {S}: decode step {i} vs "
+                        f"teacher-forced prefill, max abs err {tf}")
+            row[f"prompt_{S}"] = {"card_vs_cpu_max_abs_err": err,
+                                  "teacher_forced_max_abs_err": tf,
+                                  "flash_launches": launches}
+        if local:
+            prompts = torch.randint(0, cfg.vocab_size, (3, 12),
+                                    dtype=torch.int32,
+                                    generator=torch.Generator().manual_seed(9))
+            cg, cc = [], []
+            ids_g, log_g = greedy(cfg, gpu, prompts.to(device), 6,
+                                  quantize=True, caches_out=cg)
+            ids_c, log_c = greedy(cfg, cpu, prompts, 6, quantize=True,
+                                  caches_out=cc)
+            err = max_abs_err(log_g.cpu(), log_c)
+            apart = int8_codes_apart(cg[0], cc[0])
+            if apart > 1 or err > INT8_TOL:
+                raise AssertionError(
+                    f"phase 17 {arch} int8: codes {apart} apart, logits max "
+                    f"abs err {err}")
+            row["int8_prompt_12"] = {
+                "card_vs_cpu_max_abs_err": err, "codes_apart": apart,
+                "ids_equal": bool(torch.equal(ids_g.cpu(), ids_c))}
+        out[arch] = row
+        del cpu, gpu
+        free(device)
+    return out
+
+
+def decoder_serving(arch: str, batch: int, prompt_len: int, max_new: int,
+                    flash_per_prefill: int, profile_prefill: bool = True,
+                    profile_out=None) -> dict:
+    """``arch`` at full width and depth (bf16, seeded random weights on
+    the card) through serve(): prefill ms, decode ms a token, peak
+    max_memory_allocated, the flash kernel's launches (the counts set to
+    0 just before serve(), read just after; they must be
+    ``flash_per_prefill``, one a global or shared-block attention, since
+    decode never launches it), finite logits and ids their argmax; then
+    the same shapes warm, device time by kernel of one prefill (unless
+    ``profile_prefill`` is False) and one decode step, and the last
+    decode step's logits against a
+    prefill over the prompt and the generated tokens: relative L2 <= 0.5
+    as in phase 8 (bf16 through every layer rounds the two paths at other
+    places; logits unrelated to each other give ~1.41)."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg, res, launches, stats = serving_main_path(batch, prompt_len,
+                                                  max_new, get_config(arch))
+    stats["serve_call_s"] = time.perf_counter() - t0
+    stats["launches"] = launches
+    check_serving_output(cfg, res)
+    if launches["flash_attention"] != flash_per_prefill:
+        raise AssertionError(f"{arch}: flash launches "
+                             f"{launches['flash_attention']}, expected "
+                             f"{flash_per_prefill}")
+    res.caches = None
+    stats["warm"] = warm_serving_timings(res.params, cfg, res.prompts,
+                                         steps=4)
+    stats["profile"] = profile_serving(res.params, cfg, res.prompts,
+                                       profile_out, profile_prefill)
+    n = res.tokens.shape[1] - 1
+    seq = torch.cat([res.prompts, torch.from_numpy(res.tokens[:, :n])
+                     .to(res.prompts.device)], dim=1)
+    forced, caches = _forced_prefill(res.params, cfg, seq)
+    del caches
+    dec = res.logits[:, n]
+    stats["teacher_forced"] = {
+        "rel_l2": rel_l2(dec, forced),
+        "argmax_equal": int((dec.argmax(-1) == forced.argmax(-1)).sum()),
+        "rows": dec.shape[0]}
+    if not stats["teacher_forced"]["rel_l2"] <= 0.5:
+        raise AssertionError(f"{arch}: decode vs teacher-forced prefill "
+                             f"{stats['teacher_forced']}")
+    stats["layers"] = cfg.num_layers
+    del res, forced
+    torch.cuda.empty_cache()
+    return stats
+
+
+def gemma_phase(profile_out=None) -> dict:
+    """Phase 18: gemma3-12b at full width (48 layers, d 3840, 16 heads
+    over 8 KV heads of hd 240, d_ff 15360, vocab 262144, 5 local layers of
+    window 1024 to each global one; bf16, ~11.6e9 random parameters)
+    serving batch 8, prompt 2048, 32 new tokens: 8 flash launches a
+    prefill, one a global layer, at hd 240. Then the full width cut to 6
+    layers (one period) in float32, batch 1, prompt 1100 (the local rings
+    wrap misaligned: 1100 - 1024 is not a multiple of 1024): every decode
+    step against a teacher-forced prefill, relative L2 <= 1e-4, the same
+    ids."""
+    from repro_torch.configs import get_config
+    out = {"serving": decoder_serving("gemma3-12b", 8, 2048, 32,
+                                      flash_per_prefill=8,
+                                      profile_out=profile_out)}
+    out["f32_6_layers"] = full_width_f32_teacher_forced(
+        get_config("gemma3-12b"), layers=6, batch=1, prompt_len=1100,
+        seed=13)
+    return out
+
+
+def ssm_phase(profile_out=None) -> dict:
+    """Phase 19: zamba2-1.2b (38 Mamba2 layers, d 2048, the shared block
+    of 32 heads of hd 64 after every 6th: 6 flash launches a prefill) and
+    falcon-mamba-7b (64 Mamba1 layers, d 4096, d_inner 8192, state 16;
+    its sequential scan a Python loop over the tokens of 128-token chunks;
+    no depth cut) at full width, bf16, serving batch 8, prompt 2048, 32
+    new tokens (falcon's prefill not profiled: its scan's 143,255 kernels
+    a call cost the profiler about 2 minutes). Then each cut in float32,
+    prompt 300 (not a multiple of the SSD chunk or the scan chunk of
+    128): zamba2 to 6
+    layers (one shared block), falcon to 2, every decode step against a
+    teacher-forced prefill, relative L2 <= 1e-4, the same ids."""
+    from repro_torch.configs import get_config
+    out = {arch: decoder_serving(arch, 8, 2048, 32, flash_per_prefill=n,
+                                 profile_prefill=arch != "falcon-mamba-7b",
+                                 profile_out=profile_out)
+           for arch, n in (("zamba2-1.2b", 6), ("falcon-mamba-7b", 0))}
+    out["zamba2_f32_6_layers"] = full_width_f32_teacher_forced(
+        get_config("zamba2-1.2b"), layers=6, seed=14)
+    out["falcon_f32_2_layers"] = full_width_f32_teacher_forced(
+        get_config("falcon-mamba-7b"), layers=2, seed=15)
+    return out
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -3114,7 +3427,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-16 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-19 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -3279,6 +3592,40 @@ def card_phases(args, name: str, child) -> int:
             k["launches_by_path"] = {p: counts[k["name"]]
                                      for p, counts in by_path.items()}
     del edges, values, small, big
+    torch.cuda.empty_cache()
+
+    # 17. the decoders of slice 11 at reduced size, card vs CPU
+    t = time.perf_counter()
+    phase17 = decoders_card_vs_cpu()
+    log(f"phase 17: {json.dumps(phase17)}")
+    log(f"phase 17: {time.perf_counter() - t:.1f} s")
+
+    # 18. gemma3-12b at full width
+    t = time.perf_counter()
+    phase18 = gemma_phase(args.profile_out)
+    log(f"phase 18: gemma3-12b serving {json.dumps(phase18['serving'])}")
+    log(f"phase 18: float32, 6 layers, decode vs teacher-forced prefill: "
+        f"{json.dumps(phase18['f32_6_layers'])}")
+    log(f"phase 18: {time.perf_counter() - t:.1f} s")
+
+    # 19. zamba2-1.2b and falcon-mamba-7b at full width
+    t = time.perf_counter()
+    phase19 = ssm_phase(args.profile_out)
+    for k, v in phase19.items():
+        log(f"phase 19: {k} {json.dumps(v)}")
+    log(f"phase 19: {time.perf_counter() - t:.1f} s")
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash["launches_by_path"] = {
+        "qwen2-moe-a2.7b serving": s_launches["flash_attention"],
+        "phase 17 reduced decoders (prompts 12, 16)": sum(
+            r[f"prompt_{S}"]["flash_launches"] for r in phase17.values()
+            for S in (12, 16)),
+        "gemma3-12b serving (hd 240)":
+            phase18["serving"]["launches"]["flash_attention"],
+        "zamba2-1.2b serving (hd 64)":
+            phase19["zamba2-1.2b"]["launches"]["flash_attention"],
+        "falcon-mamba-7b serving":
+            phase19["falcon-mamba-7b"]["launches"]["flash_attention"]}
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@ arrives with the slice that runs it."""
 from repro_torch.configs.base import (AttnConfig, ModelConfig, MoEConfig,
                                       REGISTRY, SSMConfig, get_config)
 
-from repro_torch.configs import qwen2_moe_a2_7b  # noqa: F401
+from repro_torch.configs import (falcon_mamba_7b, gemma3_12b,  # noqa: F401
+                                 h2o_danube_3_4b, qwen2_moe_a2_7b,
+                                 zamba2_1_2b)
 
 ALL_ARCHS = tuple(sorted(REGISTRY.keys()))
 

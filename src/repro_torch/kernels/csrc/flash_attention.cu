@@ -10,6 +10,14 @@
 //     cast to the input type.
 // q, k and v are read as float32 values (bf16 converts exactly).
 //
+// Head dims: any hd with hd % 8 == 0 (TMA's 16-byte strides) up to 256.
+// The kernel is built for HD in {32, 64, 128, 256} and runs an hd at the
+// next of these: the tensor maps span the true hd, so TMA fills the
+// columns past it with zeros in shared memory. Zero columns add nothing to
+// q . k and give zero output columns, which are not stored. So gemma3's
+// hd 240 runs at HD 256 (6.7 % of the products on zeros), h2o-danube's
+// 120 at 128, stablelm's 160 at 256.
+//
 // What bounds it on an H100: operations. At the serving path's prefill
 // (B*H = 128, S = 2048, hd = 128, causal) the two products are 2 * 2 *
 // hd * S (S + 1) / 2 * B*H = 1.37e11 FLOP, 0.139 ms at 989 TFLOP/s,
@@ -33,7 +41,12 @@
 // - bfloat16: warp-specialised. A producer warp loads Q once and K and V
 //   tiles of 64 keys into a ring of shared-memory stages, each guarded by
 //   a full and an empty mbarrier; the 128-byte swizzle spans 64 bf16, so
-//   an hd-128 row is two boxes (hd 32: the 64-byte swizzle, one box).
+//   an HD-128 row is two boxes, HD 256 four (HD 32: the 64-byte swizzle,
+//   one box). The ring holds 4 stages up to HD 128 and 2 at HD 256 (Q 64
+//   KB + 2 x 64 KB of K and V, inside the 227 KB a block may have). At HD
+//   256 a consumer's fragments (O 128, S 32, P hi and lo 32 floats) pass
+//   the 168 registers ptxas gives a 384-thread block, and it spills
+//   (ptxas's report, printed by chip_smoke.py; times in PERF.md).
 //   Keys past Sk come in as zeros and still score -1e30. Two consumer
 //   warpgroups each own 64 query rows: S = Q K^T is a wgmma with Q and K
 //   from shared memory (both K-major); P V is a wgmma with P from
@@ -73,7 +86,6 @@ struct Strides {
 constexpr int CONSUMERS = 2;  // warpgroups of 64 query rows
 constexpr int BQ = 64 * CONSUMERS;  // query rows a block
 constexpr int BKV = 64;      // keys a tile
-constexpr int STAGES = 4;
 constexpr int THREADS = 128 * (1 + CONSUMERS);
 // registers a thread after the hand-over: 32 x 128 + 232 x 256 <= 64 K
 constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 232;
@@ -86,6 +98,7 @@ struct Cfg {
   static constexpr int SW = HD >= 64 ? 128 : 2 * HD;  // swizzle span, bytes
   static constexpr int PW = SW / 2;                   // bf16 a panel row
   static constexpr int PANELS = HD / PW;
+  static constexpr int STAGES = HD > 128 ? 2 : 4;
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BKV * HD * 2;       // K or V, one tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -122,12 +135,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16(const __grid_constant__ CUtensorMap tm_q,
            const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
-           __nv_bfloat16* __restrict__ o, int G, int Sq, int Sk,
+           __nv_bfloat16* __restrict__ o, int G, int Sq, int Sk, int hd,
            long long o_b, long long o_s, long long o_h, int causal,
            float scale_log2) {
   using namespace hopper;
   using C = Cfg<HD>;
-  constexpr int SW = C::SW, PW = C::PW;
+  constexpr int SW = C::SW, PW = C::PW, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[STAGES], empty[STAGES];
   uint8_t* sq = align_1024(smem_raw);
@@ -348,6 +361,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
+      if (8 * j >= hd) continue;  // the zero columns past the true hd
       if (ra < Sq)
         *reinterpret_cast<uint32_t*>(ob + ra * o_s + col) =
             pack(__float2bfloat16(acc[4 * j] / l[0]),
@@ -366,15 +380,24 @@ constexpr int FQ = 16;       // query rows a block, 8 threads a row
 constexpr int FK = 32;       // keys a tile, 4 a thread
 constexpr int FTHREADS = 128;
 
+// Q, K, V and P tiles, in dynamic shared memory (84 KB at HD 256)
+template <int HD>
+constexpr int f32_smem_bytes() {
+  return (FQ * (HD + 1) + FK * (HD + 1) + FK * HD + FQ * (FK + 1)) * 4;
+}
+
+// columns d >= hd of Q, K and V read as zeros, as in the bf16 kernel
 template <int HD>
 __global__ void __launch_bounds__(FTHREADS)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int G, int Sq,
-          int Sk, Strides st, int causal, float scale) {
-  __shared__ float Qs[FQ][HD + 1];
-  __shared__ float Ks[FK][HD + 1];
-  __shared__ float Vs[FK][HD];
-  __shared__ float Ps[FQ][FK + 1];
+          int Sk, int hd, Strides st, int causal, float scale) {
+  extern __shared__ float fsm[];
+  float(*Qs)[HD + 1] = reinterpret_cast<float(*)[HD + 1]>(fsm);
+  float(*Ks)[HD + 1] = reinterpret_cast<float(*)[HD + 1]>(fsm + FQ * (HD + 1));
+  float(*Vs)[HD] = reinterpret_cast<float(*)[HD]>(fsm + (FQ + FK) * (HD + 1));
+  float(*Ps)[FK + 1] = reinterpret_cast<float(*)[FK + 1]>(
+      fsm + (FQ + FK) * (HD + 1) + FK * HD);
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ;
   const int hk = h / G;
   const int tid = threadIdx.x, r = tid / 8, c = tid % 8;
@@ -385,7 +408,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * st.v_b + hk * st.v_h;
   for (int i = tid; i < FQ * HD; i += FTHREADS) {
     const int rr = i / HD, d = i % HD;
-    Qs[rr][d] = q0 + rr < Sq ? qb[(q0 + rr) * st.q_s + d] : 0.f;
+    Qs[rr][d] = q0 + rr < Sq && d < hd ? qb[(q0 + rr) * st.q_s + d] : 0.f;
   }
   float acc[HD / 8];
 #pragma unroll
@@ -398,7 +421,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int i = tid; i < FK * HD; i += FTHREADS) {
       const int rr = i / HD, d = i % HD;
-      const bool in = k0 + rr < Sk;
+      const bool in = k0 + rr < Sk && d < hd;
       Ks[rr][d] = in ? kb[(k0 + rr) * st.k_s + d] : 0.f;
       Vs[rr][d] = in ? vb[(k0 + rr) * st.v_s + d] : 0.f;
     }
@@ -446,16 +469,18 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (row < Sq) {
     float* ob = o + b * st.o_b + h * st.o_h + row * st.o_s;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) ob[c + 8 * i] = acc[i] / l;
+    for (int i = 0; i < HD / 8; ++i)
+      if (c + 8 * i < hd) ob[c + 8 * i] = acc[i] / l;
   }
 }
 // q, k, v: (B, S, heads, hd) through element strides -> a 4-D map of
-// dims (hd, heads, S, B), box (one swizzle span of hd, 1, rows, 1)
+// dims (hd, heads, S, B), box (one swizzle span of HD, 1, rows, 1); the
+// box's columns past hd come in as zeros
 template <int HD>
 int seq_map(CUtensorMap* map, const void* base, int B, int S, int heads,
-            long long s_b, long long s_s, long long s_h, int rows) {
+            int hd, long long s_b, long long s_s, long long s_h, int rows) {
   using C = Cfg<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2,
                                  (cuuint64_t)s_b * 2};
@@ -466,20 +491,31 @@ int seq_map(CUtensorMap* map, const void* base, int B, int S, int heads,
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int H, int G, int Sq, int Sk, const Strides& st,
+           int B, int H, int G, int Sq, int Sk, int hd, const Strides& st,
            int causal, float scale, cudaStream_t stream) {
   if (dtype == 0) {
-    flash_f32<HD><<<dim3((Sq + FQ - 1) / FQ, H, B), FTHREADS, 0, stream>>>(
+    static bool f32_smem_set = false;
+    if (!f32_smem_set) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          f32_smem_bytes<HD>());
+      if (e != cudaSuccess) return (int)e;
+      f32_smem_set = true;
+    }
+    flash_f32<HD><<<dim3((Sq + FQ - 1) / FQ, H, B), FTHREADS,
+                    f32_smem_bytes<HD>(), stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk,
+        static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, hd,
         st, causal, scale);
     return (int)cudaGetLastError();
   }
   CUtensorMap tm_q, tm_k, tm_v;
   const int KV = H / G;
-  int rc = seq_map<HD>(&tm_q, q, B, Sq, H, st.q_b, st.q_s, st.q_h, BQ);
-  if (!rc) rc = seq_map<HD>(&tm_k, k, B, Sk, KV, st.k_b, st.k_s, st.k_h, BKV);
-  if (!rc) rc = seq_map<HD>(&tm_v, v, B, Sk, KV, st.v_b, st.v_s, st.v_h, BKV);
+  int rc = seq_map<HD>(&tm_q, q, B, Sq, H, hd, st.q_b, st.q_s, st.q_h, BQ);
+  if (!rc)
+    rc = seq_map<HD>(&tm_k, k, B, Sk, KV, hd, st.k_b, st.k_s, st.k_h, BKV);
+  if (!rc)
+    rc = seq_map<HD>(&tm_v, v, B, Sk, KV, hd, st.v_b, st.v_s, st.v_h, BKV);
   if (rc) return rc;
   static bool smem_set = false;
   if (!smem_set) {
@@ -492,8 +528,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
   const float log2e = 1.4426950408889634f;
   flash_bf16<HD><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS,
                    Cfg<HD>::SMEM_BYTES, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), G, Sq, Sk, st.o_b,
-      st.o_s, st.o_h, causal, scale * log2e);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), G, Sq, Sk, hd,
+      st.o_b, st.o_s, st.o_h, causal, scale * log2e);
   return (int)cudaGetLastError();
 }
 
@@ -503,9 +539,10 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 // Sk, H / G, hd), each through its (batch, seq, head) strides in
 // elements, hd contiguous. strides: 12 values, q_b q_s q_h k_b k_s k_h
 // v_b v_s v_h o_b o_s o_h. bf16 needs 16-byte aligned q, k, v and
-// strides a multiple of 8 (TMA). hd in {32, 64, 128}; 1 <= Sq <= Sk; B,
-// H <= 65535. Returns a cudaError_t, or hopper::TMAP_ERROR + a CUresult
-// when a tensor map is refused.
+// strides a multiple of 8 (TMA). hd % 8 == 0 and 8 <= hd <= 256 (run at
+// HD 32, 64, 128 or 256); 1 <= Sq <= Sk; B, H <= 65535. Returns a
+// cudaError_t, or hopper::TMAP_ERROR + a CUresult when a tensor map is
+// refused.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       int B, int H, int G, int Sq, int Sk,
@@ -513,16 +550,18 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
                                       int causal, float scale,
                                       void* stream) {
   if ((dtype != 0 && dtype != 1) || B <= 0 || H <= 0 || G <= 0 ||
-      H % G != 0 || Sq <= 0 || Sk < Sq || B > 65535 || H > 65535)
+      H % G != 0 || Sq <= 0 || Sk < Sq || B > 65535 || H > 65535 ||
+      hd % 8 != 0 || hd < 8 || hd > 256)
     return (int)cudaErrorInvalidValue;
   const Strides st = {strides[0], strides[1], strides[2],  strides[3],
                       strides[4], strides[5], strides[6],  strides[7],
                       strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch<32>(dtype, q, k, v, o, B, H, G, Sq, Sk, st, causal, scale, s);
-    case 64: return launch<64>(dtype, q, k, v, o, B, H, G, Sq, Sk, st, causal, scale, s);
-    case 128: return launch<128>(dtype, q, k, v, o, B, H, G, Sq, Sk, st, causal, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (hd <= 32)
+    return launch<32>(dtype, q, k, v, o, B, H, G, Sq, Sk, hd, st, causal, scale, s);
+  if (hd <= 64)
+    return launch<64>(dtype, q, k, v, o, B, H, G, Sq, Sk, hd, st, causal, scale, s);
+  if (hd <= 128)
+    return launch<128>(dtype, q, k, v, o, B, H, G, Sq, Sk, hd, st, causal, scale, s);
+  return launch<256>(dtype, q, k, v, o, B, H, G, Sq, Sk, hd, st, causal, scale, s);
 }

@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+# the head dims the kernel is built for; an hd runs at the next of them
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_Q, BLOCK_K = 128, 64     # the bfloat16 kernel's query and key tiles
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,6 +34,15 @@ _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 def _need(cond: bool, what: str):
     if not cond:
         raise ValueError(f"flash_attention_cuda: {what}")
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The head dim the kernel runs ``hd`` at: the next of
+    KERNEL_HEAD_DIMS, its columns past hd zero-filled by TMA. hd must be a
+    multiple of 8 (TMA's 16-byte strides) in [8, 256]; raises otherwise."""
+    _need(hd % 8 == 0 and 8 <= hd <= KERNEL_HEAD_DIMS[-1],
+          f"hd={hd} is not a multiple of 8 in [8, {KERNEL_HEAD_DIMS[-1]}]")
+    return next(h for h in KERNEL_HEAD_DIMS if h >= hd)
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +80,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _need(k.shape[0] == B and k.shape[3] == hd, "batch or hd mismatch")
-    _need(hd in HEAD_DIMS, f"hd={hd} not in {HEAD_DIMS}")
+    kernel_head_dim(hd)
     _need(KV >= 1 and H % KV == 0, f"H={H} not a multiple of KV={KV}")
     _need(1 <= Sq <= Sk, f"Sq={Sq} must be in [1, Sk={Sk}]")
     _need(B <= 65535 and H <= 65535, "B and H at most 65535")

@@ -1,12 +1,15 @@
-"""Serving loop: batched prefill + greedy decode loop with KV caches,
-on the card unless ``device="cpu"``. ``--preset smoke`` serves a reduced
-config.
+"""Serving loop: batched prefill + greedy decode loop with KV and SSM
+caches, on the card unless ``device="cpu"``. ``--preset smoke`` serves a
+reduced config. ``--arch``: gemma3-12b (the default, as in the JAX
+package's serve loop), h2o-danube-3-4b, falcon-mamba-7b, zamba2-1.2b,
+qwen2-moe-a2.7b.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch qwen2-moe-a2.7b --preset smoke --device cpu
+        --arch zamba2-1.2b --preset smoke --device cpu
 
-The caches hold ``prompt_len + max_new`` slots, so every generated
-token's K/V lands in a slot of its own.
+The caches hold ``prompt_len + max_new`` positions, so every generated
+token's K/V lands in a slot of its own (a local layer's ring keeps the
+last ``window``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (ParamTree, init_params, make_decode_step,
                                 make_prefill_step)
@@ -92,7 +95,7 @@ def serve(arch: Union[str, ModelConfig], *, preset: str = "smoke",
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-moe-a2.7b")
+    ap.add_argument("--arch", default="gemma3-12b", choices=ALL_ARCHS)
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,13 +1,22 @@
-"""Model assembly: the stage plan, the parameter tree, the KV caches, and
-the prefill and decode forwards.
+"""Model assembly: the stage plan, the parameter tree, the KV and SSM
+caches, and the prefill and decode forwards.
 
 Depth is organized into stages as in the JAX package (``stage_plan``):
 each stage repeats a period of sublayers, and its parameters are stacked
 on a leading layer axis. Where the JAX package scans over that axis, the
-port runs a Python loop over layers. This slice serves attention + MoE /
-MLP decoders with global attention: SSM layers, the hybrid shared block,
-modality frontends, the int8 KV cache and the training forward raise
-``NotImplementedError`` naming the slice that brings them.
+port runs a Python loop over layers. Served here: attention + MoE / MLP
+decoders with global and sliding-window (local) attention, local layers
+keeping a ring of ``window`` cache slots (gemma3, h2o-danube); Mamba1 and
+Mamba2 layers with their decode states (falcon-mamba); the hybrid's one
+weight-shared attention + MLP block after each period (zamba2); and the
+int8 KV cache (``quantize=True``). Modality frontends and the training
+forward raise ``NotImplementedError`` naming the slice that brings them.
+
+Local caches are laid out ring-aligned from prefill on: position p lives
+at slot p % window. The JAX package's prefill instead stores the prompt's
+last ``window`` positions at slots 0 .. window-1, which its ring decode
+reads correctly only when (prompt - window) % window == 0; the port does
+not copy that.
 """
 from __future__ import annotations
 
@@ -17,9 +26,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (LOCAL_SLICE, apply_attention,
-                                          apply_attention_decode,
-                                          attn_specs)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import (apply_attention,
+                                          apply_attention_decode, attn_specs,
+                                          write_slot)
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        embed_specs, mlp_specs, norm_specs,
                                        unembed)
@@ -27,11 +37,8 @@ from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.param import (DTYPES, ParamTree, layer_slice,
                                       materialize, stack)
 
-SSM_SLICE = "SSM layers (mamba1/mamba2) arrive with the SSM slice"
-HYBRID_SLICE = "the hybrid shared attention block arrives with the zamba2 slice"
 FRONTEND_SLICE = "modality frontends arrive with the audio/vision slices"
 TRAIN_SLICE = "forward_train arrives with the training slice"
-INT8_SLICE = "the int8 KV cache (quantize=True) arrives with its own slice"
 
 # ---------------------------------------------------------------------------
 # Stage plan
@@ -77,14 +84,6 @@ def check_servable(cfg: ModelConfig):
     """Raise for the parts of a config that later slices bring."""
     if cfg.frontend is not None:
         raise NotImplementedError(FRONTEND_SLICE)
-    if cfg.shared_attn_every:
-        raise NotImplementedError(HYBRID_SLICE)
-    for subs, _ in stage_plan(cfg):
-        for sub in subs:
-            if sub.kind == "ssm":
-                raise NotImplementedError(SSM_SLICE)
-            if sub.kind == "attn_local":
-                raise NotImplementedError(LOCAL_SLICE)
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +93,10 @@ def check_servable(cfg: ModelConfig):
 
 def _sublayer_specs(cfg: ModelConfig, sub: SubLayer) -> dict:
     d = cfg.d_model
+    if sub.kind == "ssm":
+        return {"norm1": norm_specs(d, cfg.norm),
+                "ssm": (ssm_mod.mamba1_specs(cfg) if cfg.ssm.kind == "mamba1"
+                        else ssm_mod.mamba2_specs(cfg))}
     s = {"norm1": norm_specs(d, cfg.norm), "attn": attn_specs(cfg)}
     if sub.moe:
         s["norm2"] = norm_specs(d, cfg.norm)
@@ -104,6 +107,12 @@ def _sublayer_specs(cfg: ModelConfig, sub: SubLayer) -> dict:
     return s
 
 
+def _shared_block_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"norm1": norm_specs(d, cfg.norm), "attn": attn_specs(cfg),
+            "norm2": norm_specs(d, cfg.norm), "mlp": mlp_specs(d, cfg.d_ff)}
+
+
 def model_specs(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, under the JAX package's names."""
     check_servable(cfg)
@@ -112,41 +121,139 @@ def model_specs(cfg: ModelConfig) -> dict:
         period = {f"sub{i}": _sublayer_specs(cfg, s)
                   for i, s in enumerate(subs)}
         stages.append(stack(period, repeats))
-    return {"embed": embed_specs(cfg),
-            "final_norm": norm_specs(cfg.d_model, cfg.norm),
-            "stages": stages}
+    specs = {"embed": embed_specs(cfg),
+             "final_norm": norm_specs(cfg.d_model, cfg.norm),
+             "stages": stages}
+    if cfg.shared_attn_every:
+        specs["shared_block"] = _shared_block_specs(cfg)
+    return specs
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device="cuda") -> ParamTree:
     """Random parameters from ``gen`` (a generator on ``device``), in
-    cfg.dtype, with norms and the router in float32."""
+    cfg.dtype, with norms, the router and the SSM's A_log, D, dt bias and
+    norm scale in float32."""
     return materialize(model_specs(cfg), gen, device, DTYPES[cfg.dtype])
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV / state caches
 # ---------------------------------------------------------------------------
+
+
+def _cache_len_for(cfg: ModelConfig, sub: SubLayer, max_len: int) -> int:
+    if sub.kind == "attn_local":
+        return min(cfg.attn.window, max_len)  # ring buffer
+    return max_len
+
+
+def _ssm_init_state(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    f = (ssm_mod.mamba1_init_state if cfg.ssm.kind == "mamba1"
+         else ssm_mod.mamba2_init_state)
+    return f(cfg, batch, dtype, device)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 quantize: bool = False, device="cuda"):
-    """Zeroed K/V caches of max_len slots in cfg.dtype: a list of stages,
-    each ``{"sub<i>": {"k", "v"}}`` stacked on the layer axis, (L, B,
-    max_len, KV, hd)."""
-    if quantize:
-        raise NotImplementedError(INT8_SLICE)
+    """Zeroed caches for ``max_len`` positions: a list of stages, each
+    ``{"sub<i>": ...}`` stacked on the layer axis. Attention sublayers
+    hold ``{"k", "v"}`` (L, B, slots, KV, hd) in cfg.dtype, slots being
+    max_len, or min(window, max_len) on a local layer (a ring when it is
+    window); ``quantize=True`` holds them as ``{"k8", "v8"}`` int8 with
+    ``{"ks", "vs"}`` (L, B, slots, KV) float32 scales. SSM sublayers hold
+    their decode state; a sublayer followed by the shared block also has
+    ``"shared<i>"``, that block's K/V of max_len slots (never quantized,
+    as in the JAX package)."""
     check_servable(cfg)
     dt = DTYPES[cfg.dtype]
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    z = lambda shape, t: torch.zeros(shape, dtype=t, device=device)
     stages = []
     for subs, repeats in stage_plan(cfg):
-        shape = (repeats, batch, max_len, kv, hd)
-        stages.append({f"sub{i}": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
-            for i in range(len(subs))})
+        period = {}
+        for i, sub in enumerate(subs):
+            if sub.kind == "ssm":
+                st = {k: z((repeats,) + tuple(a.shape), a.dtype) for k, a in
+                      _ssm_init_state(cfg, batch, dt, "meta").items()}
+            else:
+                shape = (repeats, batch, _cache_len_for(cfg, sub, max_len),
+                         kv, hd)
+                if quantize:
+                    st = {"k8": z(shape, torch.int8),
+                          "v8": z(shape, torch.int8),
+                          "ks": z(shape[:-1], torch.float32),
+                          "vs": z(shape[:-1], torch.float32)}
+                else:
+                    st = {"k": z(shape, dt), "v": z(shape, dt)}
+            period[f"sub{i}"] = st
+            if sub.shared_after:
+                shape = (repeats, batch, max_len, kv, hd)
+                period[f"shared{i}"] = {"k": z(shape, dt), "v": z(shape, dt)}
+        stages.append(period)
     return stages
+
+
+def _quantize_kv(k: torch.Tensor):
+    """Per (…, head) row: scale = max |k| / 127 (at least 1e-8), codes =
+    round(k / scale) as int8. -> (codes, float32 scales)."""
+    kf = k.float()
+    s = (kf.abs().amax(-1) / 127.0).clamp(min=1e-8)
+    return torch.round(kf / s[..., None]).to(torch.int8), s
+
+
+def _dequantize_kv(k8: torch.Tensor, s: torch.Tensor, dt) -> torch.Tensor:
+    return (k8.float() * s[..., None]).to(dt)
+
+
+def _store_kv(c: dict, layer: int, slots, k, v):
+    """Write K/V rows (B, n, KV, hd) at ``slots`` (a slice or an index) of
+    layer ``layer``'s cache, quantized when the cache is int8."""
+    if "k8" in c:
+        for name, t in (("k", k), ("v", v)):
+            codes, scale = _quantize_kv(t)
+            c[f"{name}8"][layer][:, slots] = codes
+            c[f"{name}s"][layer][:, slots] = scale
+    else:
+        c["k"][layer][:, slots] = k
+        c["v"][layer][:, slots] = v
+
+
+def _store_prompt_kv(c: dict, layer: int, k, v):
+    """The prompt's K/V (B, S, KV, hd) into a cache of C slots: the last
+    min(C, S) positions, position p at slot p % C (a ring wraps; a cache
+    of at least S slots takes every position at its own index)."""
+    C = (c["k8"] if "k8" in c else c["k"]).shape[2]
+    S = k.shape[1]
+    n = min(C, S)
+    start = (S - n) % C
+    first = min(n, C - start)
+    _store_kv(c, layer, slice(start, start + first), k[:, S - n:S - n + first],
+              v[:, S - n:S - n + first])
+    if first < n:
+        _store_kv(c, layer, slice(0, n - first), k[:, S - n + first:],
+                  v[:, S - n + first:])
+
+
+def _attn_decode_cached(p, x, c: dict, layer: int, cache_len: int,
+                        cfg: ModelConfig, *, local: bool):
+    """Decode one token against layer ``layer`` of cache ``c``. An int8
+    cache is read back in cfg.dtype, the token's K/V written into that
+    copy at full precision (as the JAX package attends to it), and only
+    the token's slot quantized into the int8 cache; the JAX package
+    re-quantizes every row each step instead."""
+    if "k8" not in c:
+        out, _, _ = apply_attention_decode(p, x, c["k"][layer], c["v"][layer],
+                                           cache_len, cfg, local=local)
+        return out
+    dt = DTYPES[cfg.dtype]
+    k = _dequantize_kv(c["k8"][layer], c["ks"][layer], dt)
+    v = _dequantize_kv(c["v8"][layer], c["vs"][layer], dt)
+    out, k, v = apply_attention_decode(p, x, k, v, cache_len, cfg,
+                                       local=local)
+    at = write_slot(cfg, k.shape[1], cache_len, local)
+    _store_kv(c, layer, slice(at, at + 1), k[:, at:at + 1], v[:, at:at + 1])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +270,10 @@ def _ffn(p: dict, x: torch.Tensor, sub: SubLayer, cfg: ModelConfig):
     return x
 
 
+def _shared_mlp(sp, x, cfg: ModelConfig):
+    return x + apply_mlp(sp["mlp"], apply_norm(sp["norm2"], x, cfg.norm))
+
+
 def _embed_inputs(params, batch, cfg: ModelConfig):
     if cfg.frontend is not None:
         raise NotImplementedError(FRONTEND_SLICE)
@@ -173,33 +284,59 @@ def forward_train(params, batch, cfg: ModelConfig, **kw):
     raise NotImplementedError(TRAIN_SLICE)
 
 
+def _prefill_ssm(p, h, x, cfg: ModelConfig):
+    """Run an SSM sublayer over the full sequence: -> (x + its output,
+    its decode state)."""
+    f = (ssm_mod.apply_mamba1_with_state if cfg.ssm.kind == "mamba1"
+         else ssm_mod.apply_mamba2_with_state)
+    y, st = f(p, h, cfg)
+    return x + y, st
+
+
 def forward_prefill(params, batch, cfg: ModelConfig, *,
                     causal_mode: str = "masked_full",
-                    max_len: Optional[int] = None):
-    """Full-sequence forward emitting KV caches. -> (last_hidden (B,1,d),
-    caches). The caches are S slots long, as the JAX package emits them,
-    or ``max_len`` slots with the prompt's K/V at the front, ready for
-    ``max_len - S`` decode steps."""
+                    max_len: Optional[int] = None, quantize: bool = False):
+    """Full-sequence forward emitting caches. -> (last_hidden (B,1,d),
+    caches). The caches hold ``max_len`` positions (default: the prompt's
+    S, as the JAX package emits them), ready for ``max_len - S`` decode
+    steps: global and shared-block K/V at slots 0 .. S-1, local layers'
+    last min(window, S) positions ring-aligned, SSM states after the
+    prompt. ``quantize=True`` stores the attention K/V as int8."""
     x = _embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     if max_len is not None and max_len < S:
         raise ValueError(f"max_len={max_len} < prompt length {S}")
-    caches = init_caches(cfg, B, max_len or S, device=x.device)
+    caches = init_caches(cfg, B, max_len or S, quantize=quantize,
+                         device=x.device)
+    sp = params["shared_block"] if cfg.shared_attn_every else None
     for si, (subs, repeats) in enumerate(stage_plan(cfg)):
         for layer in range(repeats):
             layer_p = layer_slice(params["stages"][si], layer)
             for i, sub in enumerate(subs):
                 p = layer_p[f"sub{i}"]
-                h = apply_norm(p["norm1"], x, cfg.norm)
-                a, (k, v) = apply_attention(p["attn"], h, cfg, local=False,
-                                            positions=positions,
-                                            causal_mode=causal_mode)
-                x = x + a
                 c = caches[si][f"sub{i}"]
-                c["k"][layer, :, :S] = k
-                c["v"][layer, :, :S] = v
-                x = _ffn(p, x, sub, cfg)
+                h = apply_norm(p["norm1"], x, cfg.norm)
+                if sub.kind == "ssm":
+                    x, st = _prefill_ssm(p["ssm"], h, x, cfg)
+                    for name, t in st.items():
+                        c[name][layer] = t
+                else:
+                    a, (k, v) = apply_attention(
+                        p["attn"], h, cfg, local=sub.kind == "attn_local",
+                        positions=positions, causal_mode=causal_mode)
+                    x = x + a
+                    _store_prompt_kv(c, layer, k, v)
+                    x = _ffn(p, x, sub, cfg)
+                if sub.shared_after:
+                    h = apply_norm(sp["norm1"], x, cfg.norm)
+                    a, (k, v) = apply_attention(sp["attn"], h, cfg,
+                                                local=False,
+                                                positions=positions,
+                                                causal_mode=causal_mode)
+                    x = _shared_mlp(sp, x + a, cfg)
+                    _store_kv(caches[si][f"shared{i}"], layer, slice(0, S),
+                              k, v)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x[:, -1:], caches
 
@@ -211,9 +348,11 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
 
 def forward_decode(params, tokens, caches, cache_len: int,
                    cfg: ModelConfig):
-    """tokens: (B,1) int. Writes the token's K/V at slot ``cache_len`` of
-    every layer's cache IN PLACE. -> (logits (B,1,V), caches)."""
+    """tokens: (B,1) int. Writes the token's K/V at its slot of every
+    attention cache and replaces every SSM state IN PLACE. ->
+    (logits (B,1,V), caches)."""
     x = embed(params["embed"], tokens)
+    sp = params["shared_block"] if cfg.shared_attn_every else None
     for si, (subs, repeats) in enumerate(stage_plan(cfg)):
         for layer in range(repeats):
             layer_p = layer_slice(params["stages"][si], layer)
@@ -221,9 +360,25 @@ def forward_decode(params, tokens, caches, cache_len: int,
                 p = layer_p[f"sub{i}"]
                 c = caches[si][f"sub{i}"]
                 h = apply_norm(p["norm1"], x, cfg.norm)
-                a, _, _ = apply_attention_decode(
-                    p["attn"], h, c["k"][layer], c["v"][layer], cache_len,
-                    cfg, local=False)
-                x = _ffn(p, x + a, sub, cfg)
+                if sub.kind == "ssm":
+                    f = (ssm_mod.apply_mamba1_decode
+                         if cfg.ssm.kind == "mamba1"
+                         else ssm_mod.apply_mamba2_decode)
+                    y, st = f(p["ssm"], h, {k: t[layer] for k, t in
+                                            c.items()}, cfg)
+                    x = x + y
+                    for name, t in st.items():
+                        c[name][layer] = t
+                else:
+                    a = _attn_decode_cached(
+                        p["attn"], h, c, layer, cache_len, cfg,
+                        local=sub.kind == "attn_local")
+                    x = _ffn(p, x + a, sub, cfg)
+                if sub.shared_after:
+                    h = apply_norm(sp["norm1"], x, cfg.norm)
+                    a = _attn_decode_cached(sp["attn"], h,
+                                            caches[si][f"shared{i}"], layer,
+                                            cache_len, cfg, local=False)
+                    x = _shared_mlp(sp, x + a, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(params["embed"], x), caches

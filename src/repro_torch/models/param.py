@@ -31,7 +31,7 @@ _CHUNK_BYTES = 1 << 30
 @dataclasses.dataclass(frozen=True)
 class Spec:
     shape: tuple
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal|zeros|ones|ssm_a_log|ssm_dt_bias
     fan_in: Optional[int] = None
     dtype: Optional[torch.dtype] = None  # overrides the model dtype
 
@@ -87,9 +87,20 @@ def _init_leaf(spec: Spec, gen: torch.Generator, device,
         return torch.zeros(spec.shape, dtype=dt, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=device)
+    if spec.init == "ssm_a_log":
+        # mamba: A = -(1 .. N) along the last axis, stored as its log
+        n = spec.shape[-1]
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(spec.shape).to(dt).contiguous()
+    if spec.init == "ssm_dt_bias":
+        # dt = exp(U[log 1e-3, log 1e-1]), stored through softplus^-1
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dtv = torch.exp(math.log(1e-3) + u * (math.log(1e-1)
+                                               - math.log(1e-3)))
+        return (dtv + torch.log(-torch.expm1(-dtv))).to(dt)
     if spec.init != "normal":
-        raise NotImplementedError(
-            f"init {spec.init!r} belongs to the SSM slice")
+        raise ValueError(f"unknown init {spec.init!r}")
     fan = spec.fan_in or (spec.shape[0] if spec.shape else 1)
     scale = 1.0 / math.sqrt(max(fan, 1))
     out = torch.empty(spec.shape, dtype=dt, device=device)

@@ -14,11 +14,12 @@ from repro_torch.models.model import (check_servable, forward_decode,
 
 
 def make_prefill_step(cfg: ModelConfig, *, causal_mode="masked_full",
-                      max_len: Optional[int] = None):
+                      max_len: Optional[int] = None, quantize: bool = False):
     """-> prefill_step(params, batch) -> (next_tok (B,1) int32, caches,
-    logits (B,1,V)). ``max_len``: cache slots, prompt + tokens to come
-    (default: the prompt length, as the JAX package emits). The JAX step
-    returns no logits; the port's callers check them."""
+    logits (B,1,V)). ``max_len``: cache positions, prompt + tokens to come
+    (default: the prompt length, as the JAX package emits);
+    ``quantize=True``: int8 K/V caches (``model.init_caches``). The JAX
+    step returns no logits; the port's callers check them."""
     if cfg.is_encoder:
         raise NotImplementedError(
             "encoder-only archs (no decode) arrive with the hubert slice")
@@ -28,7 +29,7 @@ def make_prefill_step(cfg: ModelConfig, *, causal_mode="masked_full",
     def prefill_step(params, batch):
         last_h, caches = forward_prefill(params, batch, cfg,
                                          causal_mode=causal_mode,
-                                         max_len=max_len)
+                                         max_len=max_len, quantize=quantize)
         logits = unembed(params["embed"], last_h)
         return logits.argmax(-1).to(torch.int32), caches, logits
 

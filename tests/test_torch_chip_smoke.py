@@ -4,7 +4,8 @@ CLI), 15 (the sharded driver) and 16 (the production dry run and the
 examples), rehearsed on the CPU at a small graph500 scale through the
 port's plain path: the same runs and the same checks against scipy and closed forms
 as on the card, so a fault in the phases' own logic shows here and not
-first on the card."""
+first on the card. Phase 17 (the reduced decoders) runs as it does on the
+card, with the CPU in the card's place."""
 import _torch_threads  # noqa: F401  (first: see the module)
 import sys
 from pathlib import Path
@@ -156,3 +157,20 @@ def test_phase_16_on_the_cpu():
     assert out["examples"]["quickstart"]["reached"] > 0
     assert out["examples"]["pagerank_webmap"]["recovered_superstep"] == 10
     assert out["examples"]["path_merge_genomix"]["survivors"] == 100
+
+
+def test_phase_17_on_the_cpu():
+    """Phase 17 with the CPU against itself: the four reduced decoders,
+    prompts 12 and 16 (and 6, within the window, where layers are
+    local), teacher-forced decode, the int8 caches."""
+    out = cs.decoders_card_vs_cpu(device="cpu")
+    assert set(out) == set(cs.DECODERS)
+    for arch, row in out.items():
+        assert row["prompt_12"]["card_vs_cpu_max_abs_err"] == 0.0
+        assert row["prompt_16"]["teacher_forced_max_abs_err"] <= 1e-4
+    assert out["gemma3-12b"]["prompt_12"]["flash_launches"] == 0
+    assert out["gemma3-12b"]["int8_prompt_12"]["codes_apart"] == 0
+    assert "int8_prompt_12" not in out["zamba2-1.2b"]
+    for arch in ("gemma3-12b", "h2o-danube-3-4b"):
+        assert out[arch]["prompt_6"]["teacher_forced_max_abs_err"] <= 1e-4
+    assert "prompt_6" not in out["falcon-mamba-7b"]

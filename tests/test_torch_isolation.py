@@ -19,6 +19,11 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.graph",
            "repro_torch.kernels.flash_attention.ops",
            "repro_torch.kernels.moe_gmm", "repro_torch.models",
            "repro_torch.models.attention", "repro_torch.models.moe",
+           "repro_torch.models.ssm", "repro_torch.models.model",
+           "repro_torch.configs.gemma3_12b",
+           "repro_torch.configs.h2o_danube_3_4b",
+           "repro_torch.configs.falcon_mamba_7b",
+           "repro_torch.configs.zamba2_1_2b",
            "repro_torch.launch.serve", "repro_torch.runtime",
            "repro_torch.runtime.checkpoint", "repro_torch.runtime.failure",
            "repro_torch.runtime.faults", "repro_torch.storage",

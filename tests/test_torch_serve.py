@@ -156,20 +156,15 @@ def test_later_slices_raise():
     from repro_torch.models import init_caches
     from repro_torch.models.attention import blocked_attention
     _, tcfg = _cfgs("sort")
-    with pytest.raises(NotImplementedError, match="int8"):
-        init_caches(tcfg, 1, 8, quantize=True, device="cpu")
     x = torch.zeros(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError, match="local-attention"):
-        blocked_attention(x, x, x, causal=True, window=4)
     with pytest.raises(NotImplementedError, match="recursive"):
         blocked_attention(x, x, x, causal=True, causal_mode="recursive")
-    gemma_like = dataclasses.replace(
-        tcfg, attn=dataclasses.replace(tcfg.attn,
-                                       pattern=("local", "global")))
-    with pytest.raises(NotImplementedError, match="local-attention"):
-        make_prefill_step(gemma_like)
-    with pytest.raises(NotImplementedError, match="local-attention"):
-        make_decode_step(gemma_like)
+    vlm_like = dataclasses.replace(tcfg, frontend="vision", frontend_len=4)
+    for fn in (make_prefill_step, make_decode_step):
+        with pytest.raises(NotImplementedError, match="frontends"):
+            fn(vlm_like)
+    with pytest.raises(NotImplementedError, match="frontends"):
+        init_caches(vlm_like, 1, 8, device="cpu")
 
 
 def test_params_from_numpy_carries_bfloat16():
