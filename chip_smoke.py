@@ -33,9 +33,15 @@ and never prints its last line):
    decode (T 32) shapes, empty groups, one group holding every row, a
    group of one row, a group that ends mid-tile before a non-empty one, T
    below one tile, d 1408, sizes summing below and above T, int32 sizes,
-   f32 cases. Tolerance in the working dtype: bf16
-   2**-6 |want| + 1e-3 (two units in its last place), f32 1e-5 |want| +
-   2e-5.
+   f32 cases. Gradients: each kernel's autograd Function against the
+   plain version's autograd on the same inputs and output gradient:
+   flash dq, dk, dv at qwen2-moe's training shape (B 8, S 2048, 16 heads
+   of hd 128, bf16, causal), hubert-xlarge's (hd 80, non-causal), small
+   f32 cases and GQA; the grouped matmul's dX (the kernel on transposed
+   weights) and dW at the prefill shape in both orientations, a group of
+   one row beside an empty group, f32. Tolerance in the working dtype:
+   bf16 2**-6 |want| + 1e-3 (two units in its last place), f32 1e-5
+   |want| + 2e-5.
 3. graph path at the shape of LDBC Graphalytics' graph500-<scale>
    (Graph500 R-MAT, edge factor 16, P = 4 partitions on one card):
    PageRank (full_outer, 15 iterations) and SSSP from vertex 0
@@ -79,18 +85,24 @@ and never prints its last line):
 9. serving kernels' timings at the serving path's shapes (flash: SDPA
    as the library yardstick, also at gemma3-12b's global layers, hd 240,
    SDPA there on K/V repeated to 16 heads; grouped matmul:
-   torch._grouped_mm where this torch has it). The grouped matmul at prefill in both orientations
+   torch._grouped_mm where this torch has it). Flash also at hubert's
+   shape (non-causal, hd 80 run at HD 128), and its backward at qwen's
+   training shape beside the plain autograd backward and SDPA's. The
+   grouped matmul at prefill in both orientations
    (w_gate/w_up: d 2048 -> f 1408; w_down: d 1408 -> f 2048) and at
    decode: the kernel's wrapper alone (ms), the model's entry point
    (wrapper_ms: one launch, no other op), the host's time to enqueue one
    entry-point call (host_us, the two tensor maps' encoding included),
-   and at decode the host's time for one tensor-map encode.
-10. mutations and the library programs at the graph path's shape, each
-   run with the counts set to 0 before it and read after it: BFS and
-   Reachability from vertex 0 (left-outer + sender combine; the fold must
-   launch) equal scipy's hop counts and reached set; KCore (k = 48) on
-   graph500-22 made symmetric (134.2 M edge slots; fold and gather must
-   launch) equals a scipy peeling to its fixed point; PathMerge (16
+   and at decode the host's time for one tensor-map encode; its backward
+   at prefill: dX through the kernel (and the weights' transposing copy),
+   dW a group at a time, the plain autograd backward, torch._grouped_mm.
+10. mutations and the library programs at graph500-20 (phase 11's
+   graph, generated first), each run with the counts set to 0 before it
+   and read after it: BFS and Reachability from vertex 0 (left-outer +
+   sender combine; the fold must launch) equal scipy's hop counts and
+   reached set; KCore (k = 48) on graph500-20 made symmetric (33.6 M
+   edge slots; fold and gather must launch) equals a scipy peeling to
+   its fixed point; PathMerge (16
    rounds) on a 2**22-vertex chain equals the port's CPU path bit for
    bit (run in a child process started after the build, so that it
    overlaps the card phases), conserves its mass, and launches the
@@ -223,11 +235,36 @@ and never prints its last line):
    not profiled: its scan's 143,255 kernels a call cost the profiler
    about 2 minutes).
 
+20. training: qwen2-moe-a2.7b at full width (d 2048, 60 experts padded
+   to 64, top-4, vocab 151,936, bf16, sort dispatch) cut to 4 of 24
+   layers (~2.73e9 parameters), through repro_torch.launch.train.train:
+   global batch 8, sequence 2048, 8 steps, no checkpoint, the counts set
+   to 0 before it and read after it: every loss and grad norm finite, the
+   last loss below the first, both kernels launched; prints the loss by
+   step, each step's ms, the warm median (steps 3-8) and tokens/s, the
+   peak of max_memory_allocated, launches a step, and one more step
+   profiled. (b) the same width cut to 2 layers in float32, batch 2,
+   sequence 256: one make_train_step on the card and one on the CPU with
+   the same weights and batch: loss, grad norm and every updated
+   parameter within relative 1e-4. (c) the reduced qwen2-moe trained 4
+   steps straight, and 2 steps with a checkpoint then resumed: steps 3-4
+   within 1e-5 (loss; parameters relative L2).
+21. the frontends: (a) hubert-xlarge at full width and depth (48 layers,
+   d 1280, 16 heads of hd 80, non-causal, bf16, ~1.26e9 parameters) on
+   seeded frames, batch 8 of 2048: its encode step, then 2 train steps;
+   losses finite, flash launched; ms and the peak. (b) its float32 cut (2
+   layers, batch 2, 256 frames), one train step card vs CPU as 20 (b).
+   (c) internvl2-76b at full width cut to 2 of 80 layers (d 8192, 64
+   heads over 8, vocab 128,256, ~3.88e9 parameters) through serve() with
+   zero patch embeddings: batch 2, prompt 512, 8 new; ids in range,
+   logits finite, flash launched.
+
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
-kernels, on phase 12's to 16's runs; for flash, on phase 8's and 17's
-to 19's), max abs err, kernel /
+kernels, on phase 12's to 16's runs; for flash, on phase 8's, 17's to
+19's and 20's to 21's; for the grouped matmul, on phase 8's and 20's),
+max abs err, kernel /
 plain / bound / library ms. The last line is {"ok": true, "device":
 {...}}.
 """
@@ -270,6 +307,10 @@ SERVE_SHAPE = dict(BH=128, S=2048, hd=128, T_pre=65536, T_dec=32, d=2048,
 GEMMA_FLASH_SHAPE = dict(B=8, S=2048, H=16, KV=8, hd=240)
 # zamba2-1.2b's shared block at the same batch and prompt (phase 19)
 ZAMBA_FLASH_SHAPE = dict(B=8, S=2048, H=32, KV=32, hd=64)
+# qwen2-moe-a2.7b training (causal) and hubert-xlarge (non-causal, hd 80
+# run at HD 128) at batch 8, sequence 2048 (phases 20, 21)
+TRAIN_FLASH_SHAPE = dict(B=8, S=2048, H=16, KV=16, hd=128)
+HUBERT_FLASH_SHAPE = dict(B=8, S=2048, H=16, KV=16, hd=80)
 # the kernels each main path must launch
 GRAPH_KERNELS = ("segment_combine", "csr_spmv")
 SERVING_KERNELS = ("flash_attention", "moe_gmm")
@@ -835,7 +876,7 @@ def profile_phase(vert, n, out) -> dict:
 
 # ------------------------------------------------------------- phase 10
 
-KCORE_K = 48     # graph500-22 made symmetric: neither empty nor whole
+KCORE_K = 48     # graph500-20 made symmetric: neither empty nor whole
 CHAIN_SCALE = 22  # PathMerge's chain: 2**22 k-mer vertices
 CKPT_SCALE = 20   # phase 11's graph500 scale
 
@@ -1048,7 +1089,7 @@ class PathMergeChild:
 def mutations_and_programs(edges, n, hops, path_merge_child=None, *,
                            device="cuda", k=KCORE_K,
                            chain_scale=CHAIN_SCALE) -> dict:
-    """Phase 10 at the graph path's shape: BFS and Reachability from
+    """Phase 10 on ``edges`` (graph500-20): BFS and Reachability from
     vertex 0 held to scipy's hop counts, KCore on the symmetric graph held
     to a scipy peeling, PathMerge on a 2**22-vertex chain card vs the
     port's CPU path (``path_merge_child``'s, else run here), an insert
@@ -1084,7 +1125,7 @@ def mutations_and_programs(edges, n, hops, path_merge_child=None, *,
     log(f"phase 10: BFS {json.dumps(out['bfs'])}; reachability "
         f"{json.dumps(out['reachability'])}")
 
-    # KCore on the symmetric multigraph (134 M directed edge slots)
+    # KCore on the symmetric multigraph (2 x the edges' slots)
     t = time.perf_counter()
     sym = np.concatenate([edges, edges[:, ::-1]])
     res, st = drive(KCore(k), sym, n, 2, device)
@@ -2585,22 +2626,22 @@ def flash_parity() -> float:
 
 
 def gmm_case(T: int, d: int, f: int, E: int, live: int, dt, seed: int,
-             one_group=False):
+             one_group=False, device="cuda"):
     """Expert-sorted tokens, (E, d, f) weights, and group sizes spread
     over the first ``live`` experts (the rest empty, as the pad experts);
     ``one_group=True`` puts every row in one group, a list gives the
     sizes themselves."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(T, d, generator=g, device="cuda").to(dt)
-    w = (torch.randn(E, d, f, generator=g, device="cuda") / d ** 0.5).to(dt)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(T, d, generator=g, device=device).to(dt)
+    w = (torch.randn(E, d, f, generator=g, device=device) / d ** 0.5).to(dt)
     if isinstance(one_group, list):
-        sizes = torch.tensor(one_group, device="cuda")
+        sizes = torch.tensor(one_group, device=device)
     elif one_group:
-        sizes = torch.zeros(E, dtype=torch.int64, device="cuda")
+        sizes = torch.zeros(E, dtype=torch.int64, device=device)
         sizes[min(3, E - 1)] = T
     else:
-        eid = torch.randint(0, live, (T,), generator=g, device="cuda")
+        eid = torch.randint(0, live, (T,), generator=g, device=device)
         sizes = torch.bincount(eid, minlength=E)
     return x, w, sizes
 
@@ -2642,6 +2683,87 @@ def gmm_parity() -> float:
         if i == 4:                       # int32 sizes, as well as int64
             err = max(err, close_in_dtype(
                 grouped_matmul(x, w, sizes.int()), want, what + " int32"))
+    return err
+
+
+# (shape, causal, dtype) of phase 2's flash gradient cases
+FLASH_GRAD_CASES = [
+    (TRAIN_FLASH_SHAPE, True, "bfloat16"), (HUBERT_FLASH_SHAPE, False,
+                                            "bfloat16"),
+    (dict(B=2, S=100, H=4, KV=2, hd=64), True, "float32"),
+    (dict(B=1, S=37, H=2, KV=2, hd=32), False, "float32"),
+    (dict(B=2, S=150, H=8, KV=2, hd=128), True, "bfloat16")]
+# (T, d, f, E, live, dtype, sizes) of its grouped-matmul gradient cases
+GMM_GRAD_CASES = [
+    (SERVE_SHAPE["T_pre"], SERVE_SHAPE["d"], SERVE_SHAPE["f"],
+     SERVE_SHAPE["E"], SERVE_SHAPE["live"], "bfloat16", False),
+    (SERVE_SHAPE["T_pre"], SERVE_SHAPE["f"], SERVE_SHAPE["d"],
+     SERVE_SHAPE["E"], SERVE_SHAPE["live"], "bfloat16", False),
+    (300, 256, 384, 4, 4, "bfloat16", [1, 150, 0, 149]),
+    (1000, 128, 64, 16, 8, "float32", False)]
+
+
+def flash_grad_parity(device="cuda") -> float:
+    """FlashAttention (the kernel's forward; its backward, plain torch by
+    query block) against the plain version's autograd on the same
+    values and output gradient taken in float32: dq, dk, dv within
+    ``close_in_dtype`` of the Function's dtype, at qwen2-moe's training
+    shape (causal, hd 128, bf16), hubert-xlarge's (non-causal, hd 80),
+    small float32 cases and GQA 8 over 2. (The bf16 plain version repeats
+    K and V to H heads in bf16, so its autograd rounds each head's dK to
+    bf16 before the group's sum; the Function sums the group in float32,
+    as the float32 reference does.) ``device="cpu"`` rehearses it."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device=device).manual_seed(31)
+    rnd = lambda *s, dt: torch.randn(*s, generator=g, device=device).to(dt)
+    err = 0.0
+    for sh, causal, dt in FLASH_GRAD_CASES:
+        dt = getattr(torch, dt)
+        B, S, H, KV, hd = (sh[k] for k in ("B", "S", "H", "KV", "hd"))
+        q = rnd(B, S, H, hd, dt=dt).requires_grad_()
+        k, v = (rnd(B, S, KV, hd, dt=dt).requires_grad_() for _ in range(2))
+        do = rnd(B, S, H, hd, dt=dt)
+        got = torch.autograd.grad(fa_ops.flash_attention(q, k, v,
+                                                         causal=causal),
+                                  (q, k, v), do)
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in
+                      (q, k, v))
+        want = torch.autograd.grad(fa_ops.attention_gqa_ref(
+            qf, kf, vf, causal=causal), (qf, kf, vf), do.float())
+        for name, a, b in zip("qkv", got, want):
+            err = max(err, close_in_dtype(
+                a, b, f"flash_attention d{name} {sh} causal={causal} {dt}"))
+        del q, k, v, do, got, want, qf, kf, vf
+        free(device)
+    return err
+
+
+def gmm_grad_parity(device="cuda") -> float:
+    """GroupedMatmul (dX through the kernel on transposed weights, dW a
+    group at a time) against the plain version's autograd on the same
+    inputs and output gradient: dX and dW within ``close_in_dtype`` at the
+    prefill shape (T 65,536, d 2048 -> f 1408 and back, 64 groups of which
+    60 live), a group of one row beside an empty group, and float32."""
+    import torch
+    from repro_torch.kernels.moe_gmm import (grouped_matmul,
+                                             grouped_matmul_ref)
+    err = 0.0
+    for i, (T, d, f, E, live, dt, one) in enumerate(GMM_GRAD_CASES):
+        dt = getattr(torch, dt)
+        x, w, sizes = gmm_case(T, d, f, E, live, dt, 200 + i, one, device)
+        x.requires_grad_()
+        w.requires_grad_()
+        dy = torch.randn(T, f, generator=torch.Generator(device=device)
+                         .manual_seed(300 + i), device=device).to(dt)
+        got = torch.autograd.grad(grouped_matmul(x, w, sizes), (x, w), dy)
+        want = torch.autograd.grad(grouped_matmul_ref(x, w, sizes), (x, w),
+                                   dy)
+        for name, a, b in zip(("dX", "dW"), got, want):
+            err = max(err, close_in_dtype(
+                a, b, f"moe_gmm {name} T={T} d={d} f={f} sizes={one} {dt}"))
+        del x, w, dy, got, want
+        free(device)
     return err
 
 
@@ -2718,8 +2840,8 @@ def one_layer_check(params, cfg, prompts) -> dict:
     from repro_torch.models.attention import apply_attention
     from repro_torch.models.layers import apply_norm, embed
     from repro_torch.models.moe import apply_moe
-    from repro_torch.models.param import layer_slice
-    p = layer_slice(params["stages"][0], 0)["sub0"]
+    from repro_torch.models.param import layer_views
+    p = layer_views(params["stages"][0])[0]["sub0"]
     with torch.no_grad():
         x = embed(params["embed"], prompts)
         h = apply_norm(p["norm1"], x, cfg.norm)
@@ -2936,6 +3058,15 @@ def check_serving_output(cfg, res):
 BF16_FLOP_PER_S = 989e12
 
 
+def _bound(flop: float, nbytes: float) -> dict:
+    """bound_ms and bound_by of a bf16 function: the larger of its
+    operations over the card's peak and its bytes over the memory rate."""
+    t_op, t_b = flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S
+    return dict(bound_ms=max(t_op, t_b) * 1e3,
+                bound_by="operations" if t_op > t_b else "bytes",
+                flop=flop, bytes=nbytes)
+
+
 def flash_timing(launches: int) -> dict:
     """flash_attention at the serving prefill's shape: B*H = 128, S =
     2048, hd = 128, bf16, causal."""
@@ -2960,17 +3091,15 @@ def flash_timing(launches: int) -> dict:
     # and for PV; q, k, v read and out written once
     flop = 2 * 2 * hd * (S * (S + 1) // 2) * BH
     nbytes = 4 * BH * S * hd * 2
-    bound_ms = max(flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S) * 1e3
     return dict(name="flash_attention", route="cuda", source=FLASH_SRC,
                 replaces=FLASH_REPLACES, launches=launches,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by="operations" if flop / BF16_FLOP_PER_S >
-                nbytes / MEM_BYTES_PER_S else "bytes",
-                library_ms=lib_ms,
+                **_bound(flop, nbytes), library_ms=lib_ms,
                 library="F.scaled_dot_product_attention(is_causal=True)",
                 shape=dict(BH=BH, S=S, hd=hd, dtype="bfloat16"),
-                flop=flop, bytes=nbytes, gemma3=flash_timing_gemma())
+                gemma3=flash_timing_gemma(),
+                hubert=flash_timing_hubert(),
+                backward=flash_backward_timing())
 
 
 def flash_timing_gemma() -> dict:
@@ -3000,15 +3129,81 @@ def flash_timing_gemma() -> dict:
         time_ms(run_l)
     flop = 2 * 2 * hd * (S * (S + 1) // 2) * B * H
     nbytes = (2 * B * S * H + 2 * B * S * KV) * hd * 2
-    t_op, t_b = flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S
     return dict(shape=dict(gs, dtype="bfloat16", kernel_hd=256),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_op, t_b) * 1e3,
-                bound_by="operations" if t_op > t_b else "bytes",
-                library_ms=lib_ms,
+                **_bound(flop, nbytes), library_ms=lib_ms,
                 library="F.scaled_dot_product_attention(is_causal=True), "
-                        "K/V repeated to 16 heads",
-                flop=flop, bytes=nbytes)
+                        "K/V repeated to 16 heads")
+
+
+def flash_timing_hubert() -> dict:
+    """The flash kernel at hubert-xlarge's shape: B 8, S 2048, 16 heads of
+    hd 80 (run at HD 128), bf16, non-causal, through the model's entry
+    point; SDPA on the same tensors in (B, H, S, hd) as the yardstick.
+    The bound counts the function's work at hd 80."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    sh = HUBERT_FLASH_SHAPE
+    B, S, H, hd = (sh[k] for k in ("B", "S", "H", "hd"))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+               .bfloat16() for _ in range(3))
+    run_k = lambda: fa_ops.flash_attention(q, k, v, causal=False)
+    run_p = lambda: fa_ops.attention_gqa_ref(q, k, v, causal=False)
+    err = close_in_dtype(run_k(), run_p(), "flash_attention hubert timing")
+    q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    run_l = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+    ms, plain_ms, lib_ms = time_ms(run_k), time_ms(run_p, reps=5), \
+        time_ms(run_l)
+    return dict(shape=dict(sh, dtype="bfloat16", causal=False,
+                           kernel_hd=128),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention(is_causal=False)",
+                **_bound(2 * 2 * hd * S * S * B * H, 4 * B * S * H * hd * 2))
+
+
+def flash_backward_timing() -> dict:
+    """The flash Function's backward (``attention_gqa_backward``: plain
+    torch by query block, float32) at qwen2-moe's training shape (B 8, S
+    2048, 16 heads of hd 128, bf16, causal), beside the plain version's
+    autograd backward and SDPA's backward on the same tensors (each timed
+    as autograd.grad over a kept graph). Bound: 2.5 times the forward's
+    operations (five products to two), or q, k, v, dO read and dq, dk,
+    dv written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_gqa_backward,
+                                                     ops as fa_ops)
+    sh = TRAIN_FLASH_SHAPE
+    B, S, H, hd = (sh[k] for k in ("B", "S", "H", "hd"))
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    # as autograd calls it: on tensors that build no graph
+    run_k = lambda: attention_gqa_backward(q.detach(), k.detach(),
+                                           v.detach(), do, causal=True)
+    out_p = fa_ops.attention_gqa_ref(q, k, v, causal=True)
+    run_p = lambda: torch.autograd.grad(out_p, (q, k, v), do,
+                                        retain_graph=True)
+    err = max(close_in_dtype(a, b, f"flash backward d{n}") for n, a, b in
+              zip("qkv", run_k(), run_p()))
+    ms, plain_ms = time_ms(run_k), time_ms(run_p, reps=5)
+    del out_p
+    q4, k4, v4, do4 = (t.detach().transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    q4, k4, v4 = (t.requires_grad_() for t in (q4, k4, v4))
+    out_l = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    run_l = lambda: torch.autograd.grad(out_l, (q4, k4, v4), do4,
+                                        retain_graph=True)
+    lib_ms = time_ms(run_l)
+    fwd_flop = 2 * 2 * hd * (S * (S + 1) // 2) * B * H
+    return dict(shape=dict(sh, dtype="bfloat16", causal=True),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention(is_causal=True) "
+                        "backward",
+                **_bound(2.5 * fwd_flop, 7 * B * S * H * hd * 2))
 
 
 def grouped_mm_library(x, w, sizes):
@@ -3071,14 +3266,10 @@ def gmm_timing_one(T: int, d: int, f: int, touched_from_routing: bool,
     flop = 2 * T * d * f
     # tokens read, out written, and the weights of every expert touched
     nbytes = T * d * 2 + T * f * 2 + touched * d * f * 2
-    t_op, t_b = flop / BF16_FLOP_PER_S, nbytes / MEM_BYTES_PER_S
     return dict(ms=ms, wrapper_ms=wrapper_ms, host_us=host_us,
-                plain_ms=plain_ms,
-                bound_ms=max(t_op, t_b) * 1e3,
-                bound_by="operations" if t_op > t_b else "bytes",
+                plain_ms=plain_ms, **_bound(flop, nbytes),
                 library_ms=lib_ms, library=lib_name, max_abs_err=err,
-                shape=dict(T=T, d=d, f=f, E=E, experts_touched=touched),
-                flop=flop, bytes=nbytes)
+                shape=dict(T=T, d=d, f=f, E=E, experts_touched=touched))
 
 
 def tensor_map_encode_us(E: int, d: int, f: int) -> float:
@@ -3118,7 +3309,56 @@ def gmm_timing(launches: int) -> dict:
     dec["tensor_map_encode_us"] = tensor_map_encode_us(SERVE_SHAPE["E"], d, f)
     return dict(name="moe_gmm", route="cuda", source=GMM_SRC,
                 replaces=GMM_REPLACES, launches=launches, **pre,
-                w_down=down, decode=dec)
+                w_down=down, decode=dec, backward=gmm_backward_timing())
+
+
+def gmm_backward_timing() -> dict:
+    """The grouped matmul's backward at the prefill shape (T 65,536 rows
+    of d 2048 -> f 1408 over 64 groups, 60 live; bf16): dX through the
+    kernel on (E, f, d) weights (the transposing copy timed on its own),
+    dW a group at a time in float32 (``grouped_matmul_dw``, its host read
+    of the sizes included), the plain version's autograd backward, and
+    torch._grouped_mm for dX.
+    Bound of each: 2 T d f operations, or its operands read and result
+    written once."""
+    import torch
+    from repro_torch.kernels.moe_gmm import (grouped_matmul_cuda,
+                                             grouped_matmul_dw,
+                                             grouped_matmul_ref)
+    sh = SERVE_SHAPE
+    T, d, f, E, live = (sh[k] for k in ("T_pre", "d", "f", "E", "live"))
+    x, w, sizes = gmm_case(T, d, f, E, live, torch.bfloat16, 15)
+    dy = torch.randn(T, f, generator=torch.Generator(device="cuda")
+                     .manual_seed(16), device="cuda").bfloat16()
+    w_t = w.transpose(1, 2).contiguous()
+    run_dx = lambda: grouped_matmul_cuda(dy, w_t, sizes)
+    run_t = lambda: w.transpose(1, 2).contiguous()
+    run_dw = lambda: grouped_matmul_dw(x, dy, sizes, E, torch.bfloat16)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out_p = grouped_matmul_ref(xr, wr, sizes)
+    run_p = lambda: torch.autograd.grad(out_p, (xr, wr), dy,
+                                        retain_graph=True)
+    dx_p, dw_p = run_p()
+    err = max(close_in_dtype(run_dx(), dx_p, "moe_gmm backward dX"),
+              close_in_dtype(run_dw(), dw_p, "moe_gmm backward dW"))
+    touched = int((sizes > 0).sum())
+    flop = 2 * T * d * f
+    out = dict(shape=dict(T=T, d=d, f=f, E=E, experts_touched=touched),
+               max_abs_err=err, plain_ms=time_ms(run_p, reps=3))
+    del out_p, dx_p, dw_p
+    lib, lib_name = grouped_mm_library(dy, w_t, sizes)
+    out["dx"] = dict(ms=time_ms(run_dx), transpose_copy_ms=time_ms(run_t),
+                     library_ms=time_ms(lib) if lib else None,
+                     library=lib_name,
+                     **_bound(flop, (T * f + touched * f * d + T * d) * 2))
+    # torch._grouped_mm's 2-d x 2-d form (offsets cutting the shared T)
+    # asserts on the device unless every group's rows are a multiple of 8
+    # (16 bytes), which routing does not give: no library call here
+    out["dw"] = dict(ms=time_ms(run_dw, reps=5), library_ms=None,
+                     library="none: torch._grouped_mm's 2-d x 2-d form "
+                             "needs every group a multiple of 8 rows",
+                     **_bound(flop, (T * d + T * f + touched * d * f) * 2))
+    return out
 
 
 # ------------------------------------------------------------- phases 17-19
@@ -3331,6 +3571,316 @@ def ssm_phase(profile_out=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phases 20-21
+
+TRAIN_LAYERS = 4     # phase 20's qwen2-moe-a2.7b depth (of 24)
+TRAIN_STEPS = 8
+TRAIN_REL = 1e-4     # float32 train step, card vs CPU (relative)
+# The same step's updates (new - old), leaf by leaf, relative L2. AdamW's
+# first step moves an element by about lr * sign(g), so the parameters
+# dilute a gradient's error; the updates do not. A sign error on a share p
+# of a leaf reads about 2 * sqrt(p) here: 5e-3 catches p > 6e-6. Sound
+# runs read up to 7.65e-4: the summation order's float32 noise on
+# gradients near AdamW's eps, where the update is most sensitive to g.
+TRAIN_UPDATE_REL = 5e-3
+RESUME_REL = 1e-5    # resumed vs uninterrupted run on the card
+
+
+def _finite(*xs) -> bool:
+    return all(np.isfinite(x) for x in xs)
+
+
+def _peak_gb(device):
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9 \
+        if device == "cuda" else None
+
+
+def _reset_peak(device):
+    import torch
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def trainer_phase(cfg=None, steps: int = TRAIN_STEPS, batch: int = 8,
+                  seq: int = 2048, device="cuda", profile_out=None) -> dict:
+    """Phase 20: ``cfg`` (default qwen2-moe-a2.7b at full width, sort
+    dispatch, cut to TRAIN_LAYERS layers; bf16, seeded random weights)
+    through repro_torch.launch.train.train: global batch 8, sequence 2048,
+    ``steps`` steps, no checkpoint, the counts set to 0 just before the
+    call and read just after. Every step's loss and grad norm finite, the
+    last loss below the first (examples/train_lm.py's assertion), both
+    kernels launched. Then one more step profiled: device busy share and
+    top device kernels."""
+    import torch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.launch.train import train
+    from repro_torch.models import make_train_step
+    cfg = cfg or dataclasses.replace(qwen_config(), num_layers=TRAIN_LAYERS)
+    _reset_peak(device)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = train(cfg, steps=steps, global_batch=batch, seq_len=seq,
+                log_every=1, seed=0, device=device)
+    call_s = time.perf_counter() - t0
+    launches = {k: COUNTERS[k].launches for k in SERVING_KERNELS}
+    loss = [r["loss"] for r in res.steps]
+    gnorm = [r["grad_norm"] for r in res.steps]
+    if not _finite(*loss, *gnorm):
+        raise AssertionError(f"trainer: non-finite loss {loss} or grad "
+                             f"norm {gnorm}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"trainer: the loss did not fall: {loss}")
+    if device == "cuda":
+        check_launches("training", launches, SERVING_KERNELS)
+    warm_s = statistics.median(r["wall_s"] for r in res.steps[2:])
+    out = dict(arch=cfg.name, layers=cfg.num_layers, batch=batch, seq=seq,
+               steps=steps, params=sum(p.numel() for p in
+                                       res.params.parameters()),
+               loss=loss, grad_norm=gnorm,
+               step_ms=[r["wall_s"] * 1e3 for r in res.steps],
+               warm_step_ms=warm_s * 1e3,
+               tokens_per_s=batch * seq / warm_s, train_call_s=call_s,
+               launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               max_memory_allocated_gb=_peak_gb(device))
+    if device == "cuda":
+        step = make_train_step(cfg, total_steps=steps, warmup=5)
+        b = {k: torch.from_numpy(v).to(device) for k, v in TokenStream(
+            DataConfig(cfg.vocab_size, seq, batch, seed=1)).next_batch()
+             .items()}
+        out["profile"] = profile_kernels(
+            lambda: step(res.params, res.opt_state, b), 1, profile_out,
+            f"{cfg.name} train step ({cfg.num_layers} layers)")
+    del res
+    free(device)
+    return out
+
+
+def token_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """numpy: the token stream's first batch; an audio model's frames
+    (standard normal) and labels instead."""
+    from repro_torch.data import DataConfig, TokenStream
+    if cfg.frontend == "audio":
+        r = np.random.default_rng(seed)
+        return {"frames": r.standard_normal((batch, seq, cfg.d_model))
+                .astype(np.float32),
+                "labels": r.integers(0, cfg.vocab_size, (batch, seq))
+                .astype(np.int32)}
+    return TokenStream(DataConfig(cfg.vocab_size, seq, batch,
+                                  seed=seed)).next_batch()
+
+
+def train_card_vs_cpu(cfg, batch: int = 2, seq: int = 256, seed: int = 21,
+                      device="cuda") -> dict:
+    """``cfg`` in float32 (TF32 off): the same weights (drawn on the card,
+    copied to the host) and batch, one make_train_step on the card
+    (kernels) and one on the CPU (plain versions). Loss and grad norm
+    within relative TRAIN_REL, and every updated parameter within
+    relative L2 TRAIN_REL, and every leaf's update (new - old) within
+    relative L2 TRAIN_UPDATE_REL. ``device="cpu"`` rehearses it, the CPU
+    against itself."""
+    import torch
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.models import ParamTree, init_params, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    card = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                       device)
+    host = ParamTree(tree_map(lambda t: t.detach().cpu().clone(), card))
+    b = token_batch(cfg, batch, seq, seed)
+    step = make_train_step(cfg, warmup=5, total_steps=10)
+    res = {}
+    for side, p, dev in (("card", card, device), ("cpu", host, "cpu")):
+        before = [t.detach().clone() for t in tree_leaves(p)]
+        reset_counters()
+        t0 = time.perf_counter()
+        _, _, m = step(p, adamw_init(p),
+                       {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        res[side] = dict(metrics={k: float(v) for k, v in m.items()},
+                         seconds=time.perf_counter() - t0,
+                         launches={k: COUNTERS[k].launches
+                                   for k in SERVING_KERNELS},
+                         delta=[t.detach() - o for t, o in
+                                zip(tree_leaves(p), before)])
+        del before
+    params_rel = max(rel_l2(a.detach().cpu(), b_.detach()) for a, b_ in
+                     zip(tree_leaves(card), tree_leaves(host)))
+    update_rel = max(rel_l2(a.cpu(), b_) for a, b_ in
+                     zip(res["card"]["delta"], res["cpu"]["delta"])
+                     if float(b_.norm()) > 0)
+    mc, mh = res["card"]["metrics"], res["cpu"]["metrics"]
+    out = dict(arch=cfg.name, layers=cfg.num_layers, batch=batch, seq=seq,
+               params=sum(t.numel() for t in tree_leaves(host)),
+               card=mc, cpu=mh, params_rel_l2_max=params_rel,
+               update_rel_l2_max=update_rel,
+               loss_rel=abs(mc["loss"] - mh["loss"]) / abs(mh["loss"]),
+               grad_norm_rel=abs(mc["grad_norm"] - mh["grad_norm"])
+               / mh["grad_norm"],
+               card_s=res["card"]["seconds"], cpu_s=res["cpu"]["seconds"],
+               launches=res["card"]["launches"])
+    if not (out["loss_rel"] <= TRAIN_REL and out["grad_norm_rel"] <= TRAIN_REL
+            and params_rel <= TRAIN_REL
+            and update_rel <= TRAIN_UPDATE_REL):
+        raise AssertionError(f"float32 train step, card vs CPU: {out}")
+    del card, host, res
+    free(device)
+    return out
+
+
+def resume_check(cfg=None, steps: int = 4, batch: int = 4, seq: int = 64,
+                 device="cuda") -> dict:
+    """Phase 20 (c): ``cfg`` (default the reduced qwen2-moe, sort
+    dispatch) trained ``steps`` steps straight, and trained 2 steps with a
+    checkpoint at step 2, then resumed from it to ``steps``: the resumed
+    steps' losses within RESUME_REL (absolute) of the straight run's,
+    every parameter within relative L2 RESUME_REL (atomics' sum order
+    aside, the same operations on the same values)."""
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    cfg = cfg or qwen_config().reduced()
+    kw = dict(global_batch=batch, seq_len=seq, log_every=1, seed=3,
+              device=device)
+    whole = train(cfg, steps=steps, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        train(cfg, steps=2, ckpt_dir=d, ckpt_every=2, **kw)
+        save_s = time.perf_counter() - t0
+        resumed = train(cfg, steps=steps, ckpt_dir=d, resume=True, **kw)
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in
+                   zip(resumed.steps, whole.steps[2:]))
+    rel = max(rel_l2(a.detach(), b.detach()) for a, b in
+              zip(tree_leaves(resumed.params), tree_leaves(whole.params)))
+    out = dict(arch=cfg.name, steps=steps,
+               resumed_steps=[r["step"] for r in resumed.steps],
+               loss=[r["loss"] for r in whole.steps],
+               loss_max_abs_err=loss_err, params_rel_l2_max=rel,
+               first_run_with_save_s=save_s)
+    if out["resumed_steps"] != list(range(3, steps + 1)) or \
+            loss_err > RESUME_REL or rel > RESUME_REL:
+        raise AssertionError(f"resume vs uninterrupted: {out}")
+    return out
+
+
+def hubert_phase(cfg=None, batch: int = 8, seq: int = 2048, steps: int = 2,
+                 device="cuda") -> dict:
+    """Phase 21 (a): ``cfg`` (default hubert-xlarge at full width and
+    depth: 48 layers, d 1280, 16 heads of hd 80, non-causal; bf16, seeded
+    random weights) on seeded frames: the encode step (make_prefill_step's
+    encoder branch), then ``steps`` make_train_step steps, the counts set
+    to 0 just before. Every loss finite, flash launched; ms of each and the
+    peak of max_memory_allocated."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.models import (init_params, make_prefill_step,
+                                    make_train_step)
+    from repro_torch.optim import adamw_init
+    cfg = cfg or get_config("hubert-xlarge")
+    g = torch.Generator(device=device).manual_seed(41)
+    params = init_params(cfg, g, device)
+    b = {"frames": torch.randn((batch, seq, cfg.d_model), generator=g,
+                               device=device),
+         "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                 generator=g, device=device,
+                                 dtype=torch.int32)}
+    _reset_peak(device)
+    reset_counters()
+    sync = (lambda: torch.cuda.synchronize()) if device == "cuda" else \
+        (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    enc = float(make_prefill_step(cfg)(params, b))
+    sync()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    enc_launches = COUNTERS["flash_attention"].launches
+    step = make_train_step(cfg, warmup=5, total_steps=10)
+    opt = adamw_init(params)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: COUNTERS[k].launches for k in SERVING_KERNELS}
+    out = dict(arch=cfg.name, layers=cfg.num_layers, batch=batch, seq=seq,
+               params=sum(p.numel() for p in params.parameters()),
+               encode_loss=enc, encode_ms=encode_ms, train_loss=losses,
+               train_step_ms=ms, encode_flash_launches=enc_launches,
+               launches=launches, max_memory_allocated_gb=_peak_gb(device))
+    if not _finite(enc, *losses):
+        raise AssertionError(f"hubert: non-finite loss {out}")
+    if device == "cuda" and not (enc_launches > 0
+                                 and launches["flash_attention"] > 0):
+        raise AssertionError(f"hubert: flash never launched {out}")
+    del params, opt, b
+    free(device)
+    return out
+
+
+def internvl_phase(cfg=None, batch: int = 2, prompt_len: int = 512,
+                   max_new: int = 8, device="cuda") -> dict:
+    """Phase 21 (c): ``cfg`` (default internvl2-76b at full width, cut to
+    2 of 80 layers: d 8192, 64 heads over 8, d_ff 28,672, vocab 128,256,
+    256 patch positions; bf16) through serve(), fed zero patch embeddings
+    as the JAX serve loop does, the counts set to 0 just before: ids in
+    range and the logits' argmax, logits finite, flash launched."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.launch.serve import serve
+    cfg = cfg or dataclasses.replace(get_config("internvl2-76b"),
+                                     num_layers=2)
+    _reset_peak(device)
+    reset_counters()
+    res = serve(cfg, preset="full", batch=batch, prompt_len=prompt_len,
+                max_new=max_new, seed=0, device=device)
+    launches = {k: COUNTERS[k].launches for k in SERVING_KERNELS}
+    check_serving_output(cfg, res)
+    if device == "cuda":
+        check_launches("internvl2 serving", launches, ("flash_attention",))
+    out = dict(arch=cfg.name, layers=cfg.num_layers, batch=batch,
+               prompt_len=prompt_len, max_new=max_new,
+               params=sum(p.numel() for p in res.params.parameters()),
+               prefill_ms=res.prefill_s * 1e3,
+               decode_ms_per_token=res.decode_s_per_token * 1e3,
+               launches=launches, max_memory_allocated_gb=_peak_gb(device),
+               ids=res.tokens[0].tolist())
+    del res
+    free(device)
+    return out
+
+
+def training_phases(profile_out=None) -> dict:
+    """Phases 20 and 21 on the card, in order; -> their results."""
+    from repro_torch.configs import get_config
+    out = {}
+    t = time.perf_counter()
+    out["trainer"] = trainer_phase(profile_out=profile_out)
+    log(f"phase 20: trainer {json.dumps(out['trainer'])}")
+    out["f32_card_vs_cpu"] = train_card_vs_cpu(
+        dataclasses.replace(qwen_config(), num_layers=2))
+    log(f"phase 20 (b): float32 train step, card vs CPU "
+        f"{json.dumps(out['f32_card_vs_cpu'])}")
+    out["resume"] = resume_check()
+    log(f"phase 20 (c): resume {json.dumps(out['resume'])}")
+    log(f"phase 20: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["hubert"] = hubert_phase()
+    log(f"phase 21 (a): hubert-xlarge {json.dumps(out['hubert'])}")
+    out["hubert_f32_card_vs_cpu"] = train_card_vs_cpu(
+        dataclasses.replace(get_config("hubert-xlarge"), num_layers=2))
+    log(f"phase 21 (b): hubert float32 train step, card vs CPU "
+        f"{json.dumps(out['hubert_f32_card_vs_cpu'])}")
+    out["internvl2"] = internvl_phase()
+    log(f"phase 21 (c): internvl2-76b {json.dumps(out['internvl2'])}")
+    log(f"phase 21: {time.perf_counter() - t:.1f} s")
+    return out
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -3427,7 +3977,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-19 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-21 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -3443,10 +3993,13 @@ def card_phases(args, name: str, child) -> int:
     torch.cuda.synchronize()
     gmm_err = gmm_parity()
     torch.cuda.synchronize()
+    flash_grad_err = flash_grad_parity()
+    gmm_grad_err = gmm_grad_parity()
     log(f"kernel parity: fold bit-exact (max abs err {fold_err}), gather "
         f"exact (max abs err {gather_err}), flash_attention (max abs err "
-        f"{flash_err}), moe_gmm (max abs err {gmm_err}) in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{flash_err}), moe_gmm (max abs err {gmm_err}); gradients: "
+        f"flash_attention (max abs err {flash_grad_err}), moe_gmm (max abs "
+        f"err {gmm_grad_err}) in {time.perf_counter() - t:.1f} s")
 
     # 3. main path at graph500-<scale>
     t = time.perf_counter()
@@ -3520,18 +4073,21 @@ def card_phases(args, name: str, child) -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # 10. mutations and the library programs at the graph path's shape
+    # 10. mutations and the library programs at graph500-20 (phase 11's
+    # graph; at -22 its four graph loads took 150 s of the script)
     t = time.perf_counter()
-    phase10 = mutations_and_programs(edges, n, hops, child)
-    log(f"phase 10: {time.perf_counter() - t:.1f} s; launches by path: "
+    ck_scale = min(args.scale, CKPT_SCALE)
+    small = graph_and_references(ck_scale)
+    small_s = time.perf_counter() - t
+    phase10 = mutations_and_programs(small[0], small[1], small[4], child)
+    log(f"phase 10: {time.perf_counter() - t:.1f} s (graph500-{ck_scale} "
+        f"and its references {small_s:.1f} s); launches by path: "
         + json.dumps({k: v["launches"] for k, v in phase10.items()
                       if "launches" in v}))
 
     # 11. checkpoints and recovery, at graph500-20 (the snapshots' zlib
     # time at -22 took a quarter of the script)
     t = time.perf_counter()
-    ck_scale = min(args.scale, CKPT_SCALE)
-    small = graph_and_references(ck_scale)
     checkpoints_and_recovery(*small, scale=ck_scale)
     log(f"phase 11: {time.perf_counter() - t:.1f} s")
     torch.cuda.empty_cache()
@@ -3614,7 +4170,14 @@ def card_phases(args, name: str, child) -> int:
     for k, v in phase19.items():
         log(f"phase 19: {k} {json.dumps(v)}")
     log(f"phase 19: {time.perf_counter() - t:.1f} s")
+    # 20-21. training qwen2-moe-a2.7b; the audio and vision frontends
+    phase2x = training_phases(args.profile_out)
     flash = next(k for k in kernels if k["name"] == "flash_attention")
+    gmm = next(k for k in kernels if k["name"] == "moe_gmm")
+    gmm["launches_by_path"] = {
+        "qwen2-moe-a2.7b serving": s_launches["moe_gmm"],
+        f"qwen2-moe-a2.7b training ({TRAIN_LAYERS} layers, {TRAIN_STEPS} "
+        "steps)": phase2x["trainer"]["launches"]["moe_gmm"]}
     flash["launches_by_path"] = {
         "qwen2-moe-a2.7b serving": s_launches["flash_attention"],
         "phase 17 reduced decoders (prompts 12, 16)": sum(
@@ -3625,7 +4188,13 @@ def card_phases(args, name: str, child) -> int:
         "zamba2-1.2b serving (hd 64)":
             phase19["zamba2-1.2b"]["launches"]["flash_attention"],
         "falcon-mamba-7b serving":
-            phase19["falcon-mamba-7b"]["launches"]["flash_attention"]}
+            phase19["falcon-mamba-7b"]["launches"]["flash_attention"],
+        f"qwen2-moe-a2.7b training ({TRAIN_LAYERS} layers, {TRAIN_STEPS} "
+        "steps)": phase2x["trainer"]["launches"]["flash_attention"],
+        "hubert-xlarge encode + 2 train steps (hd 80)":
+            phase2x["hubert"]["launches"]["flash_attention"],
+        "internvl2-76b serving (2 layers)":
+            phase2x["internvl2"]["launches"]["flash_attention"]}
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

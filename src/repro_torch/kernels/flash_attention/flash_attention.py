@@ -8,7 +8,15 @@ replays the bfloat16 kernel's tile-level numerics. Same semantics as the
 JAX package's ``flash_attention_pallas``: scale hd**-0.5 after QK, the
 finite -1e30 mask, queries at the last Sq key positions, the denominator
 floored at 1e-30, float32 inside, the output in q's dtype.
-``counter.launches`` counts kernel launches.
+``counter.launches`` counts kernel launches (forward only).
+
+``FlashAttention`` is the kernel as an autograd Function: its forward
+launches the kernel and saves q, k and v; its backward is
+``ref.attention_gqa_backward``, plain torch by query block, which
+recomputes the scores rather than reading the forward's row
+log-sum-exp (the kernel does not write it). The JAX package has no
+backward kernel (JAX differentiates its XLA path off the TPU), so a
+hand-written backward is performance work for a later PR.
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_gqa_backward,
+                                                     attention_ref)
 
 # the head dims the kernel is built for; an hd runs at the next of them
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
@@ -100,16 +109,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_cuda(q, k, v, causal=causal)`` with a gradient:
+    apply(q, k, v, causal) on (B, Sq, H, hd) / (B, Sk, KV, hd) tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention_cuda(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_gqa_backward(q, k, v, do, causal=ctx.causal),
+                None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (BH, Sq, hd); k/v: (BH, Sk, hd), Sq <= Sk (the queries are the
     last Sq key positions). -> (BH, Sq, hd). The port of
-    flash_attention_pallas: the kernel on CUDA tensors, the plain
-    attention on CPU tensors."""
+    flash_attention_pallas: the kernel on CUDA tensors (differentiable
+    through ``FlashAttention``), the plain attention under autograd on
+    CPU tensors."""
     dev = q.device
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    return flash_attention_cuda(q[:, :, None], k[:, :, None],
-                                v[:, :, None], causal=causal)[:, :, 0]
+    return FlashAttention.apply(q[:, :, None], k[:, :, None], v[:, :, None],
+                                causal)[:, :, 0]

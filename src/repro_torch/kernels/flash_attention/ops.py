@@ -1,15 +1,17 @@
 """Attention over (B, S, H, hd) tensors with GQA head grouping.
 
 On CUDA tensors the kernel reads KV head h // G for query head h through
-the tensors' strides (no repeat, no transpose). On CPU tensors the plain
-version runs over K and V repeated to H heads, as the JAX wrapper does.
+the tensors' strides (no repeat, no transpose), differentiable through
+``FlashAttention`` (its backward folds dK and dV over each GQA group).
+On CPU tensors the plain version runs over K and V repeated to H heads,
+as the JAX wrapper does, under autograd.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention_cuda
+    FlashAttention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -18,7 +20,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
     dev = q.device
     if dev.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return FlashAttention.apply(q, k, v, causal)
     if dev.type != "cpu":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     return attention_gqa_ref(q, k, v, causal=causal)

@@ -2,7 +2,9 @@
 batch, the port of the JAX package's ``attention_ref``. q: (B, Sq, hd),
 k/v: (B, Sk, hd); the queries are the LAST Sq positions of the keys.
 ``attention_tiled`` replays the bfloat16 CUDA kernel's tile-level
-numerics in torch."""
+numerics in torch. ``attention_gqa_backward`` is the kernel's backward
+(plain torch, by query block: the JAX package has no backward kernel, so
+its gradient is autodiff of the XLA path)."""
 from __future__ import annotations
 
 import math
@@ -69,3 +71,49 @@ def attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc = acc * alpha + hi @ vf[:, k0:k1] + lo @ vf[:, k0:k1]
         out[:, r0:r1] = acc / l.clamp(min=1e-30)
     return out
+
+
+def attention_gqa_backward(q, k, v, do, *, causal: bool = True,
+                           block_q: int = 256):
+    """Gradients of softmax(q k^T / sqrt(hd)) v, masked causally as
+    ``attention_ref`` masks, with respect to q, k and v. q, do: (B, Sq, H,
+    hd); k/v: (B, Sk, KV, hd), query head h reading KV head h // (H // KV).
+    -> (dq, dk, dv) in the dtypes of q, k and v.
+
+    One block of ``block_q`` queries at a time (against only the keys a
+    causal block sees), all in float32: the scores and the softmax
+    recomputed from q and k, then dP = dO V^T, D = rowsum(P * dP) (=
+    rowsum(dO * O)), dS = P (dP - D), dQ = dS K / sqrt(hd), and dK, dV
+    summed over the block's queries and the GQA group. A block holds
+    (B, H, block_q, Sk) float32 scores; no (B*H, S, S) tensor is made.
+    Its work is about 2.5 times the forward's (five products to two)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    off = Sk - Sq
+    scale = hd ** -0.5
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(q)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, block_q):
+        q1 = min(q0 + block_q, Sq)
+        n = q1 - q0
+        ke = min(Sk, q1 + off) if causal else Sk
+        qb = q[:, q0:q1].float().reshape(B, n, KV, G, hd)
+        dob = do[:, q0:q1].float().reshape(B, n, KV, G, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qb, kf[:, :ke]) * scale
+        if causal:
+            mask = (torch.arange(q0, q1, device=q.device)[:, None] + off
+                    >= torch.arange(ke, device=q.device)[None])
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dp = torch.einsum("bqkgh,bskh->bkgqs", dob, vf[:, :ke])
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del dp
+        dq[:, q0:q1] = (torch.einsum("bkgqs,bskh->bqkgh", ds, kf[:, :ke])
+                        * scale).reshape(B, n, H, hd).to(q.dtype)
+        dk[:, :ke] += torch.einsum("bkgqs,bqkgh->bskh", ds, qb) * scale
+        dv[:, :ke] += torch.einsum("bkgqs,bqkgh->bskh", p, dob)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

@@ -7,7 +7,8 @@ group sizes itself and walks its own tile schedule, so a call is one
 launch and no other op; ``ops.tile_map`` and ``ops.work_tiles`` replay
 that schedule in torch. ``ops.grouped_matmul`` is the entry point the
 model calls; it runs the plain version on CPU tensors.
-``counter.launches`` counts kernel launches.
+``counter.launches`` counts kernel launches: the forward's, and the
+backward's dX launches (``ops.GroupedMatmul``).
 """
 from __future__ import annotations
 

@@ -13,6 +13,15 @@ ceil(T / block_m) + E tiles): tile i of the map is the i-th tile of
 ``_group_pad``'s layout that holds a row. ``work_tiles`` replays the
 bfloat16 kernel's flat work list over (row tile, column tile), which its
 persistent blocks walk with a stride of the grid.
+
+``GroupedMatmul`` is the kernel as an autograd Function. Its backward
+takes dX = grouped_matmul(dY, W^T) through the SAME kernel, each
+expert's weights transposed into a contiguous (E, f, d) copy first (one
+more read and write of the weights a call), and dW_e = X_e^T dY_e a group
+at a time in plain float32 torch (``ref.grouped_matmul_dw``), as the JAX
+package's autodiff of ``grouped_matmul_ref`` computes it; that loop
+reads the group sizes on the host, one sync a backward call. The JAX
+package has no backward kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ import torch
 
 from repro_torch.kernels.moe_gmm.moe_gmm import (TILE_M, grouped_matmul_cuda,
                                                  tile_n)
-from repro_torch.kernels.moe_gmm.ref import grouped_matmul_ref
+from repro_torch.kernels.moe_gmm.ref import (grouped_matmul_dw,
+                                             grouped_matmul_ref)
 
 
 def _groups(group_sizes: torch.Tensor, T: int, block_m: int):
@@ -72,15 +82,39 @@ def work_tiles(group_sizes: torch.Tensor, T: int, f: int,
                         (w - rt * n_col) * block_n], dim=1).to(torch.int32)
 
 
+class GroupedMatmul(torch.autograd.Function):
+    """``grouped_matmul_cuda(tokens, w, group_sizes)`` with a gradient
+    for tokens and w: apply(tokens, w, group_sizes)."""
+
+    @staticmethod
+    def forward(ctx, tokens, w, group_sizes):
+        ctx.save_for_backward(tokens, w, group_sizes)
+        return grouped_matmul_cuda(tokens, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        tokens, w, group_sizes = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul_cuda(dy.contiguous(),
+                                     w.transpose(1, 2).contiguous(),
+                                     group_sizes)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_matmul_dw(tokens, dy, group_sizes, w.shape[0],
+                                   w.dtype)
+        return dx, dw, None
+
+
 def grouped_matmul(tokens: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """tokens: (T, d) expert-sorted; w: (E, d, f); group_sizes: (E,).
     -> (T, f), out[t] = tokens[t] @ w[expert_of(t)]. The kernel on CUDA
-    tensors (one launch), the plain version on CPU tensors."""
+    tensors (one launch; differentiable through ``GroupedMatmul``), the
+    plain version under autograd on CPU tensors."""
     dev = tokens.device
     if dev.type == "cpu":
         return grouped_matmul_ref(tokens, w, group_sizes)
     if dev.type != "cuda":
         raise ValueError(f"grouped_matmul: no kernel for device {dev}")
-    return grouped_matmul_cuda(tokens.contiguous(), w.contiguous(),
+    return GroupedMatmul.apply(tokens.contiguous(), w.contiguous(),
                                group_sizes.contiguous())

@@ -2,7 +2,9 @@
 caches, on the card unless ``device="cpu"``. ``--preset smoke`` serves a
 reduced config. ``--arch``: gemma3-12b (the default, as in the JAX
 package's serve loop), h2o-danube-3-4b, falcon-mamba-7b, zamba2-1.2b,
-qwen2-moe-a2.7b.
+qwen2-moe-a2.7b, internvl2-76b (its vision frontend fed zero patch
+embeddings, as the JAX serve loop feeds it); hubert-xlarge is
+encoder-only and refused.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch zamba2-1.2b --preset smoke --device cpu
@@ -66,11 +68,16 @@ def serve(arch: Union[str, ModelConfig], *, preset: str = "smoke",
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=device,
                             dtype=torch.int32)
+    batch_in = {"tokens": prompts}
+    if cfg.frontend == "vision":
+        batch_in["patch_embeds"] = torch.zeros(
+            (batch, cfg.frontend_len, cfg.d_model), dtype=torch.float32,
+            device=device)
     prefill = make_prefill_step(cfg, max_len=prompt_len + max_new)
     decode = make_decode_step(cfg)
     _sync(device)
     t0 = time.perf_counter()
-    tok, caches, logits = prefill(params, {"tokens": prompts})
+    tok, caches, logits = prefill(params, batch_in)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     out, step_logits = [tok], [logits]

@@ -1,11 +1,16 @@
 from repro_torch.models.model import (forward_decode, forward_prefill,
-                                      init_caches, init_params, model_specs,
-                                      stage_plan)
-from repro_torch.models.param import ParamTree, params_from_numpy
-from repro_torch.models.steps import make_decode_step, make_prefill_step
+                                      forward_train, init_caches,
+                                      init_params, model_specs, stage_plan)
+from repro_torch.models.param import (ParamTree, opt_state_from_numpy,
+                                      params_from_numpy)
+from repro_torch.models.steps import (chunked_xent, loss_fn,
+                                      make_decode_step, make_prefill_step,
+                                      make_train_step)
 
 __all__ = [
-    "ParamTree", "forward_decode", "forward_prefill", "init_caches",
-    "init_params", "make_decode_step", "make_prefill_step", "model_specs",
-    "params_from_numpy", "stage_plan",
+    "ParamTree", "chunked_xent", "forward_decode", "forward_prefill",
+    "forward_train", "init_caches", "init_params", "loss_fn",
+    "make_decode_step", "make_prefill_step", "make_train_step",
+    "model_specs", "opt_state_from_numpy", "params_from_numpy",
+    "stage_plan",
 ]

@@ -1,15 +1,19 @@
-"""Attention: GQA prefill, sliding-window (local) attention, and
-single-token decode against a KV cache (a ring of ``window`` slots on
-local layers).
+"""Attention: GQA prefill and training, sliding-window (local)
+attention, and single-token decode against a KV cache (a ring of
+``window`` slots on local layers).
 
-Global layers' prefill core is the hand-written flash-attention kernel on
-CUDA tensors (the JAX package runs its Pallas kernel there on the TPU)
-and the plain masked softmax on CPU tensors. Local layers run in plain
+Global layers' core is the hand-written flash-attention kernel on CUDA
+tensors (the JAX package runs its Pallas kernel there on the TPU), with
+a backward of its own (``kernels/flash_attention/ops.py``), and the plain
+masked softmax under autograd on CPU tensors. Local layers run in plain
 torch, by query block, on either device: the JAX package never hands a
 window to its kernel, and runs them in XLA (``_sliding_window``, or plain
 causal when the window covers the sequence). Decode is plain torch. The
-recursive-halving causal schedule belongs to the training slice and
-raises.
+recursive-halving causal schedule (``causal_mode="recursive"``) is the
+JAX package's XLA schedule, blocked online softmax in plain torch, and
+runs only on CPU tensors: on CUDA tensors the kernel takes every call
+with no window, as the JAX package's Pallas kernel does on the TPU
+before it reads ``causal_mode``.
 """
 from __future__ import annotations
 
@@ -76,22 +80,119 @@ def local_attention(q, k, v, *, window: Optional[int],
 
 
 def blocked_attention(q, k, v, *, causal: bool,
-                      window: Optional[int] = None,
+                      window: Optional[int] = None, q_block: int = Q_BLOCK,
+                      kv_block: int = Q_BLOCK,
                       causal_mode: str = "masked_full"):
     """q: (B,S,H,hd), k/v: (B,S,KV,hd) -> (B,S,H,hd). A causal call with
-    a window takes the local path (plain torch; ``window >= S`` is plain
-    causal), as the JAX package takes XLA's; every other call the flash
-    kernel (CPU tensors: its plain version)."""
+    a window takes the local path (plain torch, ``q_block`` queries a
+    block; ``window >= S`` is plain causal), as the JAX package takes
+    XLA's. Every other call on CUDA tensors takes the flash kernel,
+    whatever ``causal_mode`` says. On CPU tensors, a causal call under
+    ``causal_mode="recursive"`` with S > q_block takes the
+    recursive-halving schedule (tiles of q_block x kv_block; the JAX
+    package needs S a multiple of both, the port cuts ragged tiles); the
+    rest the kernel's plain version (the masked softmax)."""
     if causal_mode not in ("masked_full", "recursive"):
         raise ValueError(f"causal_mode={causal_mode!r}")
+    S = q.shape[1]
     if window is not None and causal:
-        return local_attention(q, k, v,
-                               window=window if window < q.shape[1] else None)
-    if causal and causal_mode == "recursive":
-        raise NotImplementedError(
-            "causal_mode='recursive' (recursive-halving schedule) arrives "
-            "with the training slice")
+        return local_attention(q, k, v, window=window if window < S else None,
+                               q_block=q_block)
+    if (causal and causal_mode == "recursive" and S > q_block
+            and q.device.type == "cpu"):
+        B, _, H, hd = q.shape
+        KV = k.shape[2]
+        qg = q.reshape(B, S, KV, H // KV, hd)
+        acc, _, l = _recursive_causal(qg, k, v, 0, 0, hd ** -0.5, q_block,
+                                      kv_block, depth=3)
+        # (B,KV,G,S,hd) -> (B,S,H,hd); the JAX package reshapes without
+        # this transpose, which scrambles heads when H > 1 (ROADMAP)
+        return _finalize(acc, l, q.dtype).permute(0, 3, 1, 2, 4) \
+            .reshape(B, S, H, hd)
     return fa_ops.flash_attention(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# Recursive-halving schedule (blocked online softmax; CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+def _block_attend(q, k, v, qpos, kpos, *, causal: bool, scale: float):
+    """One (q-block, kv-block) tile. q: (B,Qb,KV,G,hd), k/v: (B,Kb,KV,hd).
+    -> unnormalised float32 (acc (B,KV,G,Qb,hd), m, l (B,KV,G,Qb))."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    if causal:
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype).float(),
+                       v.float())
+    return acc, m, p.sum(-1)
+
+
+def _online_combine(carry, new):
+    acc0, m0, l0 = carry
+    acc1, m1, l1 = new
+    m = torch.maximum(m0, m1)
+    a0 = torch.exp(m0 - m)
+    a1 = torch.exp(m1 - m)
+    return acc0 * a0[..., None] + acc1 * a1[..., None], m, l0 * a0 + l1 * a1
+
+
+def _finalize(acc, l, dtype):
+    return (acc / l.clamp(min=1e-30)[..., None]).to(dtype)
+
+
+def _scan_attention_state(qg, k, v, *, causal: bool, q_block: int,
+                          kv_block: int, scale: float, qoff: int = 0,
+                          koff: int = 0):
+    """Every query block against every key block, online: -> float32
+    (acc (B,KV,G,S,hd), m, l (B,KV,G,S)). Queries sit at positions qoff +
+    i, keys at koff + j."""
+    B, S, KV, G, hd = qg.shape
+    Sk = k.shape[1]
+    dev = qg.device
+    out = []
+    for q0 in range(0, S, q_block):
+        n = min(q_block, S - q0)
+        qpos = qoff + q0 + torch.arange(n, device=dev)
+        state = (torch.zeros((B, KV, G, n, hd), device=dev),
+                 torch.full((B, KV, G, n), NEG_INF, device=dev),
+                 torch.zeros((B, KV, G, n), device=dev))
+        for k0 in range(0, Sk, kv_block):
+            kpos = koff + torch.arange(k0, min(k0 + kv_block, Sk),
+                                       device=dev)
+            state = _online_combine(state, _block_attend(
+                qg[:, q0:q0 + n], k[:, k0:k0 + kv_block],
+                v[:, k0:k0 + kv_block], qpos, kpos, causal=causal,
+                scale=scale))
+        out.append(state)
+    return tuple(torch.cat(parts, dim=3) for parts in zip(*out))
+
+
+def _recursive_causal(qg, k, v, qoff, koff, scale, q_block, kv_block,
+                      depth):
+    """(acc, m, l) of causal attention of qg against k/v starting at the
+    same position. Recursive halving: [A(Q1,K1); D(Q2,K1) A(Q2,K2)], the
+    dense block D with no masked-out tiles."""
+    S = qg.shape[1]
+    if depth == 0 or S <= q_block:
+        return _scan_attention_state(qg, k, v, causal=True,
+                                     q_block=min(q_block, S),
+                                     kv_block=min(kv_block, S), scale=scale,
+                                     qoff=qoff, koff=koff)
+    h = S // 2
+    top = _recursive_causal(qg[:, :h], k[:, :h], v[:, :h], qoff, koff,
+                            scale, q_block, kv_block, depth - 1)
+    lo_dense = _scan_attention_state(qg[:, h:], k[:, :h], v[:, :h],
+                                     causal=False, q_block=min(q_block, h),
+                                     kv_block=min(kv_block, h), scale=scale,
+                                     qoff=qoff + h, koff=koff)
+    lo_diag = _recursive_causal(qg[:, h:], k[:, h:], v[:, h:], qoff + h,
+                                koff + h, scale, q_block, kv_block,
+                                depth - 1)
+    lo = _online_combine(lo_dense, lo_diag)
+    return tuple(torch.cat([a, b], dim=3) for a, b in zip(top, lo))
 
 
 def _proj_in(x, w):
@@ -116,8 +217,10 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.attn.causal:  # decoder archs use RoPE; encoder stub skips it
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    S = x.shape[1]
     o = blocked_attention(q, k, v, causal=cfg.attn.causal,
                           window=cfg.attn.window if local else None,
+                          q_block=min(Q_BLOCK, S), kv_block=min(Q_BLOCK, S),
                           causal_mode=causal_mode)
     return _proj_out(o, p["wo"]), (k, v)
 

@@ -1,5 +1,5 @@
 """Model assembly: the stage plan, the parameter tree, the KV and SSM
-caches, and the prefill and decode forwards.
+caches, and the training, prefill and decode forwards.
 
 Depth is organized into stages as in the JAX package (``stage_plan``):
 each stage repeats a period of sublayers, and its parameters are stacked
@@ -9,8 +9,13 @@ decoders with global and sliding-window (local) attention, local layers
 keeping a ring of ``window`` cache slots (gemma3, h2o-danube); Mamba1 and
 Mamba2 layers with their decode states (falcon-mamba); the hybrid's one
 weight-shared attention + MLP block after each period (zamba2); and the
-int8 KV cache (``quantize=True``). Modality frontends and the training
-forward raise ``NotImplementedError`` naming the slice that brings them.
+int8 KV cache (``quantize=True``); the audio frontend stub (precomputed
+frames in place of token embeddings, an encoder's own unembedding) and
+the vision stub (projected patch embeddings in place of the first
+``frontend_len`` token embeddings). ``forward_train`` checkpoints each
+layer (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+``jax.checkpoint`` of its scan body does, so a backward pass holds one
+layer's activations at a time and replays that layer's forward.
 
 Local caches are laid out ring-aligned from prefill on: position p lives
 at slot p % window. The JAX package's prefill instead stores the prompt's
@@ -21,9 +26,11 @@ not copy that.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
@@ -34,11 +41,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        embed_specs, mlp_specs, norm_specs,
                                        unembed)
 from repro_torch.models.moe import apply_moe, moe_specs
-from repro_torch.models.param import (DTYPES, ParamTree, layer_slice,
+from repro_torch.models.param import (DTYPES, ParamTree, Spec, layer_views,
                                       materialize, stack)
-
-FRONTEND_SLICE = "modality frontends arrive with the audio/vision slices"
-TRAIN_SLICE = "forward_train arrives with the training slice"
 
 # ---------------------------------------------------------------------------
 # Stage plan
@@ -80,12 +84,6 @@ def stage_plan(cfg: ModelConfig):
     return stages
 
 
-def check_servable(cfg: ModelConfig):
-    """Raise for the parts of a config that later slices bring."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(FRONTEND_SLICE)
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -114,18 +112,25 @@ def _shared_block_specs(cfg: ModelConfig) -> dict:
 
 
 def model_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree's shapes, under the JAX package's names."""
-    check_servable(cfg)
+    """The parameter tree's shapes, under the JAX package's names. An
+    audio model's ``embed`` holds only its ``unembed`` (its inputs are
+    frame embeddings); a vision model adds ``vision_proj.w``."""
     stages = []
     for subs, repeats in stage_plan(cfg):
         period = {f"sub{i}": _sublayer_specs(cfg, s)
                   for i, s in enumerate(subs)}
         stages.append(stack(period, repeats))
-    specs = {"embed": embed_specs(cfg),
-             "final_norm": norm_specs(cfg.d_model, cfg.norm),
+    d = cfg.d_model
+    embed_s = embed_specs(cfg)
+    if cfg.frontend == "audio":
+        embed_s = {"unembed": Spec((d, cfg.vocab_size), fan_in=d)}
+    specs = {"embed": embed_s,
+             "final_norm": norm_specs(d, cfg.norm),
              "stages": stages}
     if cfg.shared_attn_every:
         specs["shared_block"] = _shared_block_specs(cfg)
+    if cfg.frontend == "vision":
+        specs["vision_proj"] = {"w": Spec((d, d), fan_in=d)}
     return specs
 
 
@@ -165,7 +170,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     their decode state; a sublayer followed by the shared block also has
     ``"shared<i>"``, that block's K/V of max_len slots (never quantized,
     as in the JAX package)."""
-    check_servable(cfg)
     dt = DTYPES[cfg.dtype]
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     z = lambda shape, t: torch.zeros(shape, dtype=t, device=device)
@@ -275,13 +279,76 @@ def _shared_mlp(sp, x, cfg: ModelConfig):
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    if cfg.frontend is not None:
-        raise NotImplementedError(FRONTEND_SLICE)
-    return embed(params["embed"], batch["tokens"])
+    """The first hidden states (B,S,d): audio takes ``batch["frames"]``
+    cast to the model dtype; otherwise the token embeddings, a vision
+    model's first F replaced by ``batch["patch_embeds"]`` (B,F,d)
+    projected through ``vision_proj.w``."""
+    if cfg.frontend == "audio":
+        return batch["frames"].to(DTYPES[cfg.dtype])
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        pe = batch["patch_embeds"].to(x.dtype) @ params["vision_proj"]["w"]
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
-def forward_train(params, batch, cfg: ModelConfig, **kw):
-    raise NotImplementedError(TRAIN_SLICE)
+def _train_sub(p, x, aux, sub: SubLayer, cfg: ModelConfig, positions,
+               causal_mode):
+    """One sublayer of the training forward: -> (x, aux + its aux loss)."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if sub.kind == "ssm":
+        f = (ssm_mod.apply_mamba1 if cfg.ssm.kind == "mamba1"
+             else ssm_mod.apply_mamba2)
+        return x + f(p["ssm"], h, cfg), aux
+    a, _ = apply_attention(p["attn"], h, cfg, local=sub.kind == "attn_local",
+                           positions=positions, causal_mode=causal_mode)
+    x = x + a
+    if sub.moe:
+        mo, a = apply_moe(p["moe"], apply_norm(p["norm2"], x, cfg.norm), cfg)
+        return x + mo, aux + a
+    return _ffn(p, x, sub, cfg), aux
+
+
+def _train_layer(layer_p, sp, x, aux, *, subs, cfg: ModelConfig, positions,
+                 causal_mode):
+    """One layer of a stage (its period of sublayers, and the shared block
+    after a sublayer marked for it): the body the JAX package scans."""
+    for i, sub in enumerate(subs):
+        x, aux = _train_sub(layer_p[f"sub{i}"], x, aux, sub, cfg, positions,
+                            causal_mode)
+        if sub.shared_after:
+            h = apply_norm(sp["norm1"], x, cfg.norm)
+            a, _ = apply_attention(sp["attn"], h, cfg, local=False,
+                                   positions=positions,
+                                   causal_mode=causal_mode)
+            x = _shared_mlp(sp, x + a, cfg)
+    return x, aux
+
+
+def forward_train(params, batch, cfg: ModelConfig, *,
+                  causal_mode: str = "masked_full", remat: bool = True):
+    """The full-sequence training forward. -> (hidden (B,S,d) after the
+    final norm, the MoE layers' summed aux loss as a float32 scalar).
+    ``remat=True`` checkpoints each layer when gradients are on: the
+    backward keeps a layer's input and replays its forward, kernels
+    included."""
+    x = _embed_inputs(params, batch, cfg)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = params["shared_block"] if cfg.shared_attn_every else None
+    for si, (subs, _) in enumerate(stage_plan(cfg)):
+        body = functools.partial(_train_layer, subs=subs, cfg=cfg,
+                                 positions=positions,
+                                 causal_mode=causal_mode)
+        for layer_p in layer_views(params["stages"][si]):
+            if remat and torch.is_grad_enabled():
+                x, aux = checkpoint(body, layer_p, sp, x, aux,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = body(layer_p, sp, x, aux)
+    return apply_norm(params["final_norm"], x, cfg.norm), aux
 
 
 def _prefill_ssm(p, h, x, cfg: ModelConfig):
@@ -310,9 +377,8 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
     caches = init_caches(cfg, B, max_len or S, quantize=quantize,
                          device=x.device)
     sp = params["shared_block"] if cfg.shared_attn_every else None
-    for si, (subs, repeats) in enumerate(stage_plan(cfg)):
-        for layer in range(repeats):
-            layer_p = layer_slice(params["stages"][si], layer)
+    for si, (subs, _) in enumerate(stage_plan(cfg)):
+        for layer, layer_p in enumerate(layer_views(params["stages"][si])):
             for i, sub in enumerate(subs):
                 p = layer_p[f"sub{i}"]
                 c = caches[si][f"sub{i}"]
@@ -353,9 +419,8 @@ def forward_decode(params, tokens, caches, cache_len: int,
     (logits (B,1,V), caches)."""
     x = embed(params["embed"], tokens)
     sp = params["shared_block"] if cfg.shared_attn_every else None
-    for si, (subs, repeats) in enumerate(stage_plan(cfg)):
-        for layer in range(repeats):
-            layer_p = layer_slice(params["stages"][si], layer)
+    for si, (subs, _) in enumerate(stage_plan(cfg)):
+        for layer, layer_p in enumerate(layer_views(params["stages"][si])):
             for i, sub in enumerate(subs):
                 p = layer_p[f"sub{i}"]
                 c = caches[si][f"sub{i}"]

@@ -6,7 +6,11 @@ token) messages, with two physical group-by plans.
   capacity slots (overflow dropped); plain torch.
 * ``sort`` — sort-based group-by: tokens stably argsorted by expert id
   and multiplied by a grouped matmul (the hand-written kernel on CUDA
-  tensors, its plain version on CPU tensors). The paper-faithful plan.
+  tensors, with its backward's dX through the same kernel; its plain
+  version under autograd on CPU tensors). The paper-faithful plan.
+
+Both train: the gates and the Switch-style aux loss carry gradients to
+the router as ``_route`` gives them.
 """
 from __future__ import annotations
 

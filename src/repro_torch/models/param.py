@@ -7,8 +7,10 @@ slice. ``materialize`` turns the tree into a ``ParamTree`` (an
 ``nn.Module`` whose attributes carry the JAX names, so its
 ``state_dict`` keys read ``stages.0.sub0.attn.wq``) from an explicit
 ``torch.Generator`` on an explicit device. ``params_from_numpy`` builds
-the same module from the JAX parameter tree as numpy arrays, so the
-tests hand both packages the same weights.
+the same module from the JAX parameter tree as numpy arrays, and
+``opt_state_from_numpy`` the optimizer state from the JAX ``{"step",
+"m", "v"}`` tree, so the tests hand both packages the same weights and
+the same state.
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ from torch import nn
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
-# a leaf above this many bytes in float32 is drawn one leading slice at a
-# time, so the full model never holds a float32 copy of its experts
+# a leaf above this many bytes in float32 is drawn a block of leading
+# slices at a time (each block at most this size, or one slice), so the
+# full model never holds a float32 copy of its experts or embedding
 _CHUNK_BYTES = 1 << 30
 
 
@@ -49,8 +52,10 @@ def stack(tree, n: int):
 
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module: ``tree["attn"]["wq"]``
-    and ``tree.attn.wq`` name the same tensor. Parameters carry no
-    gradient: this slice serves."""
+    and ``tree.attn.wq`` name the same tensor. Parameters are made with
+    ``requires_grad=False`` (serving runs under ``torch.no_grad()``
+    anyway); the trainer turns gradients on with the module's own
+    ``requires_grad_(True)``."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -70,14 +75,16 @@ class ParamTree(nn.Module):
         return key in self._parameters or key in self._modules
 
 
-def layer_slice(tree: ParamTree, i: int) -> dict:
-    """Layer i of a stacked stage: a nested dict of views ``t[i]``."""
-    out = {}
-    for k, v in tree._parameters.items():
-        out[k] = v[i]
-    for k, m in tree._modules.items():
-        out[k] = layer_slice(m, i)
-    return out
+def layer_views(tree: ParamTree) -> list:
+    """Every layer of a stacked stage: a list of nested dicts of the views
+    ``t.unbind(0)`` gives (layer i's ``t[i]``). Under autograd one
+    backward node a leaf stacks the layers' gradients, where ``t[i]``
+    taken a layer at a time would each write a full-size zero gradient
+    to be summed."""
+    parts = {k: v.unbind(0) for k, v in tree._parameters.items()}
+    parts.update({k: layer_views(m) for k, m in tree._modules.items()})
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _init_leaf(spec: Spec, gen: torch.Generator, device,
@@ -106,7 +113,7 @@ def _init_leaf(spec: Spec, gen: torch.Generator, device,
     out = torch.empty(spec.shape, dtype=dt, device=device)
     n = math.prod(spec.shape)
     pieces = [out] if n * 4 <= _CHUNK_BYTES or not spec.shape else \
-        list(out)
+        list(out.split(max(1, _CHUNK_BYTES // (4 * out[0].numel()))))
     for piece in pieces:
         piece.copy_(torch.randn(piece.shape, generator=gen,
                                 dtype=torch.float32, device=device) * scale)
@@ -170,9 +177,24 @@ def _check_against(specs, tree, path="params"):
 def params_from_numpy(cfg, tree, device="cuda") -> ParamTree:
     """The JAX package's parameter tree for ``cfg`` as numpy arrays
     (``{"embed", "final_norm", "stages": [{"sub0": {...}}]}``, each stage
-    stacked on a leading layer axis) -> the port's parameters with the
-    same values, on ``device``. Raises if a name or shape differs from
-    the port's own tree."""
+    stacked on a leading layer axis; an audio model's ``embed`` holds
+    only ``unembed``, a vision model adds ``vision_proj.w``) -> the
+    port's parameters with the same values, on ``device``. Raises if a
+    name or shape differs from the port's own tree."""
     from repro_torch.models.model import model_specs
     _check_against(model_specs(cfg), tree)
     return ParamTree(tree_from_numpy(tree, device))
+
+
+def opt_state_from_numpy(cfg, state, device="cuda") -> dict:
+    """The JAX package's AdamW state ``{"step", "m", "v"}`` as numpy
+    arrays (moments shaped like ``cfg``'s parameters) -> the port's
+    (``optim.adamw_init``'s layout: an int32 step, nested dicts and
+    lists of moments), on ``device``."""
+    from repro_torch.models.model import model_specs
+    for k in ("m", "v"):
+        _check_against(model_specs(cfg), state[k], f"opt.{k}")
+    out = tree_from_numpy({k: state[k] for k in ("m", "v")}, device)
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -10,7 +10,9 @@ whole sequence's, which at falcon-mamba-7b's width and batch 8 would be
 8.6 GB a layer), then one fused multiply-add a token carries the state.
 The SSD form takes any sequence length: a tail that does not fill a chunk
 is padded with dt = 0 (decay 1, no input), which leaves the state as it
-was.
+was. Both train under autograd as they stand; only the scan changes
+with gradients on, keeping each token's state as a new tensor where
+serving writes it in place.
 """
 from __future__ import annotations
 
@@ -97,8 +99,16 @@ def _mamba1_scan(p, xc, z, dt, Bc, Cc, chunk: int = SCAN_CHUNK):
         bcc = Bc[:, c0:c1].float().transpose(0, 1)            # (T,B,N)
         dA = torch.exp(dtc[..., None] * A)                    # (T,B,d_in,N)
         hs = (dtc * xcc)[..., None] * bcc[:, :, None, :]      # dBx, then h
-        for t in range(c1 - c0):
-            h = hs[t].addcmul_(dA[t], h)
+        if torch.is_grad_enabled():
+            # autograd keeps every state, so none is written in place
+            states = []
+            for t in range(c1 - c0):
+                h = torch.addcmul(hs[t], dA[t], h)
+                states.append(h)
+            hs = torch.stack(states)
+        else:
+            for t in range(c1 - c0):
+                h = hs[t].addcmul_(dA[t], h)
         y[:, c0:c1] = torch.einsum("tbdn,btn->btd", hs,
                                    Cc[:, c0:c1].float())
         del dA, hs

@@ -174,3 +174,43 @@ def test_phase_17_on_the_cpu():
     for arch in ("gemma3-12b", "h2o-danube-3-4b"):
         assert out[arch]["prompt_6"]["teacher_forced_max_abs_err"] <= 1e-4
     assert "prompt_6" not in out["falcon-mamba-7b"]
+
+
+def test_phase_2_gradients_on_the_cpu(monkeypatch):
+    """Phase 2's gradient parity walks its cases (here small ones; the
+    plain version on both sides)."""
+    monkeypatch.setattr(cs, "FLASH_GRAD_CASES", [
+        (dict(B=2, S=40, H=4, KV=2, hd=32), True, "float32"),
+        (dict(B=1, S=24, H=2, KV=2, hd=80), False, "float32")])
+    monkeypatch.setattr(cs, "GMM_GRAD_CASES", [
+        (300, 32, 48, 4, 4, "float32", [1, 150, 0, 149]),
+        (200, 16, 24, 8, 5, "float32", False)])
+    assert cs.flash_grad_parity("cpu") == 0.0
+    assert cs.gmm_grad_parity("cpu") == 0.0
+
+
+def test_phases_20_and_21_on_the_cpu():
+    """Phases 20-21 at reduced size on the CPU: the trainer (4 steps of
+    the reduced qwen2-moe, sort dispatch), the float32 step against the
+    CPU (itself here), the resume check, hubert's encode and train steps,
+    its float32 step, and internvl2 served with zero patch embeddings."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    qwen = cs.qwen_config().reduced()
+    tr = cs.trainer_phase(qwen, steps=4, batch=2, seq=32, device="cpu")
+    assert tr["loss"][-1] < tr["loss"][0] and len(tr["step_ms"]) == 4
+    assert tr["launches"] == {"flash_attention": 0, "moe_gmm": 0}
+    assert "profile" not in tr
+    for cfg in (dataclasses.replace(qwen, num_layers=2),
+                get_config("hubert-xlarge").reduced()):
+        cmp = cs.train_card_vs_cpu(cfg, batch=2, seq=32, device="cpu")
+        assert (cmp["params_rel_l2_max"] == cmp["update_rel_l2_max"]
+                == cmp["loss_rel"] == 0.0)
+    res = cs.resume_check(seq=32, device="cpu")
+    assert res["resumed_steps"] == [3, 4]
+    hub = cs.hubert_phase(get_config("hubert-xlarge").reduced(), batch=2,
+                          seq=32, device="cpu")
+    assert len(hub["train_loss"]) == 2 and hub["encode_flash_launches"] == 0
+    vl = cs.internvl_phase(get_config("internvl2-76b").reduced(), batch=2,
+                           prompt_len=16, max_new=3, device="cpu")
+    assert len(vl["ids"]) == 3

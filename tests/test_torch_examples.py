@@ -1,9 +1,9 @@
-"""The port's graph examples (``examples/*_torch.py``) on ``--device
-cpu``, each held to a plain reference: the quickstart's SSSP distances
-equal scipy's unweighted shortest paths (exactly), the webmap PageRank
-is within rtol 1e-4 of a float64 power iteration and its latest
-checkpoint repartitions onto P = 3, and PathMerge conserves its length
-mass (exactly n). The references are chip_smoke.py's, which phase 16
+"""The port's examples (``examples/*_torch.py``) on ``--device cpu``,
+each held to a plain reference: the quickstart's SSSP distances equal
+scipy's unweighted shortest paths (exactly), the webmap PageRank is
+within rtol 1e-4 of a float64 power iteration and its latest
+checkpoint repartitions onto P = 3, PathMerge conserves its length mass
+(exactly n), and the LM trainer's loss falls. The references are chip_smoke.py's, which phase 16
 holds the same examples to on the card."""
 import _torch_threads  # noqa: F401  (first: see the module)
 import importlib.util
@@ -59,8 +59,19 @@ def test_path_merge_conserves_mass(capsys):
         capsys.readouterr().out
 
 
+def test_train_lm_loss_falls(capsys):
+    """20 steps of the reduced h2o-danube on the CPU: the loss at step 20
+    (the last logged) is below step 1's (the example's own assert)."""
+    res = _example("train_lm").main(["--device", "cpu", "--steps", "20",
+                                     "--global-batch", "4",
+                                     "--seq-len", "32"])
+    assert res["last"] < res["first"]
+    assert [h[0] for h in res["result"].hist] == [1, 20]
+    assert "OK: loss improved" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("name", ["quickstart", "pagerank_webmap",
-                                  "path_merge_genomix"])
+                                  "path_merge_genomix", "train_lm"])
 def test_the_card_is_the_default(name, monkeypatch, capsys):
     """Without --device the example runs on the card; with no card it
     stops and names --device cpu."""

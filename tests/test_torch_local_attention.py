@@ -86,14 +86,20 @@ def test_blocked_attention_with_window_bfloat16():
 
 def test_global_and_recursive_paths():
     """No window: the flash wrapper (its plain version here); the
-    recursive-halving schedule still raises (training slice)."""
+    recursive-halving schedule on CPU tensors at S > q_block, equal to
+    it to atol 2e-6 (float32, online softmax summed in another order),
+    and the flash wrapper again at S <= q_block."""
     q = _t(_rand((1, 16, 2, 32), 3))
     got = t_attn.blocked_attention(q, q, q, causal=True)
     torch.testing.assert_close(got, t_fa.attention_gqa_ref(q, q, q),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="recursive"):
-        t_attn.blocked_attention(q, q, q, causal=True,
-                                 causal_mode="recursive")
+    rec = t_attn.blocked_attention(q, q, q, causal=True, q_block=4,
+                                   kv_block=4, causal_mode="recursive")
+    torch.testing.assert_close(rec, got, rtol=0, atol=2e-6)
+    assert not torch.equal(rec, got)           # it took the schedule
+    same = t_attn.blocked_attention(q, q, q, causal=True,
+                                    causal_mode="recursive")
+    torch.testing.assert_close(same, got, rtol=0, atol=0)
     with pytest.raises(ValueError, match="causal_mode"):
         t_attn.blocked_attention(q, q, q, causal=True, causal_mode="x")
 

@@ -18,7 +18,7 @@ from repro.models import moe as J
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.models import moe as T
 from repro_torch.models import params_from_numpy
-from repro_torch.models.param import layer_slice
+from repro_torch.models.param import layer_views
 
 ARCH = "qwen2-moe-a2.7b"
 
@@ -40,7 +40,7 @@ def weights():
     tp = params_from_numpy(tcfg, jp, device="cpu")
     j_moe = jax.tree.map(lambda a: jnp.asarray(a[1]),
                          jp["stages"][0]["sub0"]["moe"])
-    t_moe = layer_slice(tp.stages[0], 1)["sub0"]["moe"]
+    t_moe = layer_views(tp.stages[0])[1]["sub0"]["moe"]
     return j_moe, t_moe
 
 
