@@ -24,17 +24,19 @@ and never prints its last line):
    edge_gather_ref exactly. Flash
    attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
    bf16, causal), at gemma3-12b's (B 8, S 2048, 16 heads over 8, hd 240),
-   at zamba2-1.2b's shared block's (B 8, S 2048, 32 heads, hd 64)
-   and small cases (f32 and bf16, causal or not, hd 32/64/128 and the
-   head dims the kernel runs padded, 8, 16, 80, 120, 160, 240, and 256,
+   at zamba2-1.2b's shared block's (B 8, S 2048, 32 heads, hd 64),
+   stablelm-12b's (32 heads over 8, hd 160) and yi-34b's (56 heads over
+   8: a GQA group of 7, hd 128) and small cases (f32 and bf16, causal
+   or not, hd 32/64/128 and the head dims the kernel runs padded, 8, 16, 80, 120, 160, 240, and 256,
    ragged S, Sq < Sk, a query block whose second warpgroup holds no row,
    GQA through strided views, also at hd 240 and 120); the grouped matmul at the prefill (T
    65,536 rows, d 2048, f 1408 and back, 64 groups of which 60 live) and
    decode (T 32) shapes, empty groups, one group holding every row, a
    group of one row, a group that ends mid-tile before a non-empty one, T
    below one tile, d 1408, sizes summing below and above T, int32 sizes,
-   f32 cases. Gradients: each kernel's autograd Function against the
-   plain version's autograd on the same inputs and output gradient:
+   f32 cases, and llama4-maverick's w_gate (T 16,384 rows top-1 over 128
+   experts, d 5120, f 8192). Gradients: each kernel's autograd Function
+   against the plain version's autograd on the same inputs and output gradient:
    flash dq, dk, dv at qwen2-moe's training shape (B 8, S 2048, 16 heads
    of hd 128, bf16, causal), hubert-xlarge's (hd 80, non-causal), small
    f32 cases and GQA; the grouped matmul's dX (the kernel on transposed
@@ -96,6 +98,9 @@ and never prints its last line):
    and at decode the host's time for one tensor-map encode; its backward
    at prefill: dX through the kernel (and the weights' transposing copy),
    dW a group at a time, the plain autograd backward, torch._grouped_mm.
+   Flash also at stablelm-12b's and yi-34b's prefill shapes (SDPA on K/V
+   repeated to 32 and 56 heads), the grouped matmul at llama4-maverick's
+   w_gate (every expert's weights read: bound by bytes).
 10. mutations and the library programs at graph500-20 (phase 11's
    graph, generated first), each run with the counts set to 0 before it
    and read after it: BFS and Reachability from vertex 0 (left-outer +
@@ -258,12 +263,31 @@ and never prints its last line):
    heads over 8, vocab 128,256, ~3.88e9 parameters) through serve() with
    zero patch embeddings: batch 2, prompt 512, 8 new; ids in range,
    logits finite, flash launched.
+22. the last three configs through serve() at batch 8, prompt 2048, 32
+   new, as phase 18: stablelm-12b at full width and depth (40 layers, d
+   5120, 32 heads over 8 of hd 160, LayerNorm, tied embeddings, ~11.63e9
+   parameters; 40 flash launches a prefill, its prefill profiled),
+   yi-34b at full width cut to 8 of 60 layers (56 heads over 8, untied
+   embeddings) and llama4-maverick-400b-a17b cut to one period of 2 of 48
+   layers (a dense and a MoE layer of 128 experts top-1 with a shared
+   expert, on the sort dispatch: the grouped matmul launched; ~17.5e9
+   parameters); stablelm-12b's float32 2-layer cut at prompt 300, decode
+   vs teacher-forced prefill within relative L2 1e-4; the three at
+   reduced size card vs CPU: ids equal, logits within atol 1e-4.
+23. the LLM production dry run on meta tensors (no device), in
+   subprocesses: (a) the three configs' decode_32k cells on the 256-rank
+   mesh (python -m repro_torch.launch.dryrun), argument bytes exactly the
+   JAX package's, printed beside its flops, temp and collective bytes
+   with the ratios; (b) stablelm-12b's prefill at phase 22's batch x
+   prompt counted on a one-rank mesh (arguments + eager peak) beside
+   phase 22's max_memory_allocated: a reading.
 
 Before its last line it prints its total seconds, the card's nvidia-smi
 line and one JSON line with every kernel's name, route, source, the TPU
 kernel it replaces, its launches on its main path (and, for the graph
 kernels, on phase 12's to 16's runs; for flash, on phase 8's, 17's to
-19's and 20's to 21's; for the grouped matmul, on phase 8's and 20's),
+19's, 20's to 21's and 22's; for the grouped matmul, on phase 8's, 20's
+and 22's),
 max abs err, kernel /
 plain / bound / library ms. The last line is {"ok": true, "device":
 {...}}.
@@ -311,6 +335,14 @@ ZAMBA_FLASH_SHAPE = dict(B=8, S=2048, H=32, KV=32, hd=64)
 # run at HD 128) at batch 8, sequence 2048 (phases 20, 21)
 TRAIN_FLASH_SHAPE = dict(B=8, S=2048, H=16, KV=16, hd=128)
 HUBERT_FLASH_SHAPE = dict(B=8, S=2048, H=16, KV=16, hd=80)
+# the last three configs at batch 8, prompt 2048 (phase 22): stablelm-12b's
+# attention (hd 160 run at HD 256), yi-34b's (a GQA group of 7) and
+# llama4-maverick's MoE w_gate (128 experts, top-1: T = 8 * 2048 rows)
+STABLELM_FLASH_SHAPE = dict(B=8, S=2048, H=32, KV=8, hd=160)
+YI_FLASH_SHAPE = dict(B=8, S=2048, H=56, KV=8, hd=128)
+LLAMA4_GMM_SHAPE = dict(T=16384, d=5120, f=8192, E=128)
+YI_LAYERS = 8        # phase 22's yi-34b depth (of 60)
+LLAMA4_LAYERS = 2    # phase 22's llama4-maverick depth (of 48): one period
 # the kernels each main path must launch
 GRAPH_KERNELS = ("segment_combine", "csr_spmv")
 SERVING_KERNELS = ("flash_attention", "moe_gmm")
@@ -2559,7 +2591,8 @@ def close_in_dtype(got, want, what: str) -> float:
 def flash_parity() -> float:
     """flash_attention (kernel) vs attention_ref on the card, over the
     serving path's prefill shape, gemma3-12b's (hd 240, GQA 16 over 8),
-    zamba2-1.2b's shared block (hd 64, 32 heads) and small edge cases,
+    zamba2-1.2b's shared block (hd 64, 32 heads), stablelm-12b's (hd 160,
+    32 over 8), yi-34b's (56 over 8: a group of 7) and small edge cases,
     at every head dim the kernel is built for and at head dims it runs
     padded (8, 16, 80, 120, 160, 240)."""
     import torch
@@ -2613,7 +2646,9 @@ def flash_parity() -> float:
     # gemma3-12b's global layers and zamba2-1.2b's shared block at the
     # serving batch and prompt
     for name, gs in (("gemma3-12b", GEMMA_FLASH_SHAPE),
-                     ("zamba2-1.2b", ZAMBA_FLASH_SHAPE)):
+                     ("zamba2-1.2b", ZAMBA_FLASH_SHAPE),
+                     ("stablelm-12b", STABLELM_FLASH_SHAPE),
+                     ("yi-34b", YI_FLASH_SHAPE)):
         q = rnd(gs["B"], gs["S"], gs["H"], gs["hd"], dt=torch.bfloat16)
         k, v = (rnd(gs["B"], gs["S"], gs["KV"], gs["hd"], dt=torch.bfloat16)
                 for _ in range(2))
@@ -2683,7 +2718,30 @@ def gmm_parity() -> float:
         if i == 4:                       # int32 sizes, as well as int64
             err = max(err, close_in_dtype(
                 grouped_matmul(x, w, sizes.int()), want, what + " int32"))
+    # llama4-maverick's w_gate at phase 22's prefill: 128 experts, top-1
+    x, w, sizes = llama4_gmm_case(seed=116)
+    err = max(err, close_in_dtype(
+        grouped_matmul(x, w, sizes), grouped_matmul_ref(x, w, sizes),
+        f"moe_gmm llama4-maverick shape {LLAMA4_GMM_SHAPE}"))
     return err
+
+
+def llama4_gmm_case(seed: int):
+    """llama4-maverick's w_gate grouped matmul at phase 22's prefill: T =
+    16,384 rows routed top-1, uniformly at random, over 128 experts (d
+    5120, f 8192, bf16; the 10.7 GB of weights drawn a block of experts
+    at a time). -> (x, w, sizes)."""
+    import torch
+    sh = LLAMA4_GMM_SHAPE
+    T, d, f, E = sh["T"], sh["d"], sh["f"], sh["E"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, d, generator=g, device="cuda").bfloat16()
+    w = torch.empty(E, d, f, dtype=torch.bfloat16, device="cuda")
+    for blk in w.split(16):
+        blk.copy_(torch.randn(blk.shape, generator=g, device="cuda")
+                  / d ** 0.5)
+    eid = torch.randint(0, E, (T,), generator=g, device="cuda")
+    return x, w, torch.bincount(eid, minlength=E)
 
 
 # (shape, causal, dtype) of phase 2's flash gradient cases
@@ -3098,28 +3156,38 @@ def flash_timing(launches: int) -> dict:
                 library="F.scaled_dot_product_attention(is_causal=True)",
                 shape=dict(BH=BH, S=S, hd=hd, dtype="bfloat16"),
                 gemma3=flash_timing_gemma(),
+                stablelm=flash_timing_gqa(STABLELM_FLASH_SHAPE, "stablelm",
+                                          17),
+                yi=flash_timing_gqa(YI_FLASH_SHAPE, "yi", 18),
                 hubert=flash_timing_hubert(),
                 backward=flash_backward_timing())
 
 
 def flash_timing_gemma() -> dict:
     """flash_attention at gemma3-12b's global layers: B 8, S 2048, 16
-    query heads over 8 KV heads of hd 240 (run at HD 256), bf16, causal,
-    through the model's entry point (fa_ops) on (B, S, H, hd) tensors.
-    The bound counts the function's work at hd 240; the yardstick is SDPA
-    on the same q and on K/V repeated to 16 heads beforehand (untimed)."""
+    query heads over 8 KV heads of hd 240 (run at HD 256)."""
+    return flash_timing_gqa(GEMMA_FLASH_SHAPE, "gemma3", 12)
+
+
+def flash_timing_gqa(gs: dict, what: str, seed: int) -> dict:
+    """flash_attention at a GQA prefill shape ``gs`` (B, S, H over KV
+    heads of hd), bf16, causal, through the model's entry point (fa_ops)
+    on (B, S, H, hd) tensors. The bound counts the function's work at hd;
+    the yardstick is SDPA on the same q and on K/V repeated to H heads
+    beforehand (untimed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    gs = GEMMA_FLASH_SHAPE
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        kernel_head_dim
     B, S, H, KV, hd = (gs[k] for k in ("B", "S", "H", "KV", "hd"))
-    g = torch.Generator(device="cuda").manual_seed(12)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(B, S, H, hd, generator=g, device="cuda").bfloat16()
     k, v = (torch.randn(B, S, KV, hd, generator=g, device="cuda")
             .bfloat16() for _ in range(2))
     run_k = lambda: fa_ops.flash_attention(q, k, v, causal=True)
     run_p = lambda: fa_ops.attention_gqa_ref(q, k, v, causal=True)
-    err = close_in_dtype(run_k(), run_p(), "flash_attention gemma3 timing")
+    err = close_in_dtype(run_k(), run_p(), f"flash_attention {what} timing")
     q4 = q.transpose(1, 2).contiguous()
     k4, v4 = (t.transpose(1, 2).repeat_interleave(H // KV, dim=1)
               .contiguous() for t in (k, v))
@@ -3129,11 +3197,12 @@ def flash_timing_gemma() -> dict:
         time_ms(run_l)
     flop = 2 * 2 * hd * (S * (S + 1) // 2) * B * H
     nbytes = (2 * B * S * H + 2 * B * S * KV) * hd * 2
-    return dict(shape=dict(gs, dtype="bfloat16", kernel_hd=256),
+    return dict(shape=dict(gs, dtype="bfloat16",
+                           kernel_hd=kernel_head_dim(hd)),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 **_bound(flop, nbytes), library_ms=lib_ms,
                 library="F.scaled_dot_product_attention(is_causal=True), "
-                        "K/V repeated to 16 heads")
+                        f"K/V repeated to {H} heads")
 
 
 def flash_timing_hubert() -> dict:
@@ -3226,9 +3295,6 @@ def grouped_mm_library(x, w, sizes):
 def gmm_timing_one(T: int, d: int, f: int, touched_from_routing: bool,
                    seed: int) -> dict:
     import torch
-    from repro_torch.kernels.moe_gmm import (grouped_matmul,
-                                             grouped_matmul_cuda,
-                                             grouped_matmul_ref)
     E, live = SERVE_SHAPE["E"], SERVE_SHAPE["live"]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
@@ -3243,13 +3309,23 @@ def gmm_timing_one(T: int, d: int, f: int, touched_from_routing: bool,
         eid = torch.randint(0, live, (T,), generator=g, device="cuda")
     eid = torch.sort(eid).values
     sizes = torch.bincount(eid, minlength=E)
+    return gmm_timing_of(x, w, sizes, f"T={T} d={d} f={f}")
+
+
+def gmm_timing_of(x, w, sizes, what: str) -> dict:
+    """Kernel, entry-point, plain and library ms of one grouped matmul,
+    the host's µs to enqueue a call, and the bound."""
+    import torch
+    from repro_torch.kernels.moe_gmm import (grouped_matmul,
+                                             grouped_matmul_cuda,
+                                             grouped_matmul_ref)
+    (T, d), (E, _, f) = x.shape, w.shape
     # the kernel's wrapper alone, and the entry point the model calls
     # (the same one launch, behind the device dispatch) as wrapper_ms
     run_k = lambda: grouped_matmul_cuda(x, w, sizes)
     run_w = lambda: grouped_matmul(x, w, sizes)
     run_p = lambda: grouped_matmul_ref(x, w, sizes)
-    err = close_in_dtype(run_k(), run_p(),
-                         f"moe_gmm timing inputs T={T} d={d} f={f}")
+    err = close_in_dtype(run_k(), run_p(), f"moe_gmm timing inputs {what}")
     lib, lib_name = grouped_mm_library(x, w, sizes)
     ms, plain_ms = time_ms(run_k), time_ms(run_p, reps=5)
     wrapper_ms = time_ms(run_w)
@@ -3309,7 +3385,20 @@ def gmm_timing(launches: int) -> dict:
     dec["tensor_map_encode_us"] = tensor_map_encode_us(SERVE_SHAPE["E"], d, f)
     return dict(name="moe_gmm", route="cuda", source=GMM_SRC,
                 replaces=GMM_REPLACES, launches=launches, **pre,
-                w_down=down, decode=dec, backward=gmm_backward_timing())
+                w_down=down, decode=dec, backward=gmm_backward_timing(),
+                llama4=gmm_timing_llama4())
+
+
+def gmm_timing_llama4() -> dict:
+    """moe_gmm at llama4-maverick's w_gate (phase 22's prefill: T 16,384
+    rows top-1 over 128 experts, d 5120, f 8192, bf16): every expert's
+    weights read, so the bound is set by bytes."""
+    import torch
+    x, w, sizes = llama4_gmm_case(seed=119)
+    out = gmm_timing_of(x, w, sizes, "llama4-maverick")
+    del x, w
+    torch.cuda.empty_cache()
+    return out
 
 
 def gmm_backward_timing() -> dict:
@@ -3476,13 +3565,14 @@ def decoders_card_vs_cpu(device="cuda") -> dict:
     return out
 
 
-def decoder_serving(arch: str, batch: int, prompt_len: int, max_new: int,
+def decoder_serving(arch, batch: int, prompt_len: int, max_new: int,
                     flash_per_prefill: int, profile_prefill: bool = True,
                     profile_out=None) -> dict:
-    """``arch`` at full width and depth (bf16, seeded random weights on
-    the card) through serve(): prefill ms, decode ms a token, peak
-    max_memory_allocated, the flash kernel's launches (the counts set to
-    0 just before serve(), read just after; they must be
+    """``arch`` (a name: full width and depth; or a config) in bf16 with
+    seeded random weights on the card through serve(): prefill ms,
+    decode ms a token, peak max_memory_allocated, the flash kernel's
+    launches (the counts set to 0 just before serve(), read just after;
+    they must be
     ``flash_per_prefill``, one a global or shared-block attention, since
     decode never launches it), finite logits and ids their argmax; then
     the same shapes warm, device time by kernel of one prefill (unless
@@ -3493,9 +3583,11 @@ def decoder_serving(arch: str, batch: int, prompt_len: int, max_new: int,
     places; logits unrelated to each other give ~1.41)."""
     import torch
     from repro_torch.configs import get_config
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    arch = cfg.name
     t0 = time.perf_counter()
     cfg, res, launches, stats = serving_main_path(batch, prompt_len,
-                                                  max_new, get_config(arch))
+                                                  max_new, cfg)
     stats["serve_call_s"] = time.perf_counter() - t0
     stats["launches"] = launches
     check_serving_output(cfg, res)
@@ -3569,6 +3661,200 @@ def ssm_phase(profile_out=None) -> dict:
     out["falcon_f32_2_layers"] = full_width_f32_teacher_forced(
         get_config("falcon-mamba-7b"), layers=2, seed=15)
     return out
+
+
+# ------------------------------------------------------------- phase 22
+
+LLM_ARCHS = ("stablelm-12b", "yi-34b", "llama4-maverick-400b-a17b")
+
+
+def llm_config(arch: str, layers=None, dispatch: str = "sort"):
+    """``arch`` from the registry, cut to ``layers`` (None: all), a MoE
+    config on the ``dispatch`` group-by (sort: the grouped matmul)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+    return cfg
+
+
+def llm_card_vs_cpu(device="cuda") -> dict:
+    """The three configs at reduced() size (float32; llama4 on the sort
+    dispatch), the same weights served on the card and on the CPU, TF32
+    off, batch 3, prompt 40, 6 new tokens: greedy ids equal, logits
+    within atol 1e-4 (as phase 7). ``device="cpu"`` rehearses it here."""
+    import copy
+    import torch
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.models import init_params
+    out = {}
+    for i, arch in enumerate(LLM_ARCHS):
+        cfg = llm_config(arch).reduced()
+        cpu = init_params(cfg, torch.Generator().manual_seed(30 + i), "cpu")
+        gpu = copy.deepcopy(cpu).to(device)
+        prompts = torch.randint(0, cfg.vocab_size, (3, 40),
+                                dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(40))
+        reset_counters()
+        ids_g, log_g = greedy(cfg, gpu, prompts.to(device), 6)
+        free(device)
+        launches = {k: c.launches for k, c in COUNTERS.items()}
+        ids_c, log_c = greedy(cfg, cpu, prompts, 6)
+        err = max_abs_err(log_g.cpu(), log_c)
+        if not torch.equal(ids_g.cpu(), ids_c) or err > 1e-4:
+            raise AssertionError(f"phase 22 {arch} reduced: card ids "
+                                 f"{ids_g.tolist()} vs CPU "
+                                 f"{ids_c.tolist()}, logits max abs err "
+                                 f"{err}")
+        out[arch] = {"card_vs_cpu_max_abs_err": err,
+                     "ids": ids_c[0].tolist(),
+                     "launches": {k: launches[k] for k in SERVING_KERNELS}}
+        del cpu, gpu
+        free(device)
+    return out
+
+
+def llm_phase(profile_out=None) -> dict:
+    """Phase 22: (a) stablelm-12b at full width and depth (40 layers, d
+    5120, 32 heads over 8 of hd 160 run at HD 256, LayerNorm, tied
+    embeddings, vocab 100,352; ~11.63e9 parameters), yi-34b at full width
+    cut to 8 of 60 layers (56 heads over 8: a GQA group of 7, untied
+    embeddings) and llama4-maverick-400b-a17b at full width cut to one
+    period of 2 of 48 layers (one dense, one MoE of 128 experts top-1 and
+    a shared expert, on the sort dispatch: the grouped matmul over 128
+    groups; ~17.5e9 parameters), each bf16 with seeded random weights
+    through serve() at batch 8, prompt 2048, 32 new, as phase 18
+    (``decoder_serving``: one flash launch a layer a prefill; stablelm's
+    prefill profiled, the others' decode step only). (b) stablelm-12b's
+    full width cut to 2 layers in float32 at prompt 300, decode vs a
+    teacher-forced prefill within relative L2 1e-4. (c) the three at
+    reduced size, card vs CPU (``llm_card_vs_cpu``)."""
+    out = {}
+    for arch, layers, profile_prefill in (
+            ("stablelm-12b", None, True), ("yi-34b", YI_LAYERS, False),
+            ("llama4-maverick-400b-a17b", LLAMA4_LAYERS, False)):
+        cfg = llm_config(arch, layers)
+        out[arch] = decoder_serving(cfg, 8, 2048, 32,
+                                    flash_per_prefill=cfg.num_layers,
+                                    profile_prefill=profile_prefill,
+                                    profile_out=profile_out)
+    if not out["llama4-maverick-400b-a17b"]["launches"]["moe_gmm"]:
+        raise AssertionError("phase 22: llama4-maverick launched no "
+                             "grouped matmul")
+    out["stablelm_f32_2_layers"] = full_width_f32_teacher_forced(
+        llm_config("stablelm-12b"), layers=2, seed=16)
+    out["reduced_card_vs_cpu"] = llm_card_vs_cpu()
+    return out
+
+
+# ------------------------------------------------------------- phase 23
+
+# phase 23 (b)'s shape: phase 22's stablelm-12b prefill
+LLM_COUNT_SHAPE = dict(arch="stablelm-12b", batch=8, seq=2048)
+
+
+def start_llm_dryruns(out_dir) -> dict:
+    """Phase 23: (a) the three configs' decode_32k cells on the (16, 16)
+    mesh, one dry-run CLI subprocess an arch, and (b) the one-rank count
+    of stablelm-12b's prefill (this script's ``--llm-count``), all
+    started at once, so no process group leaks into this process.
+    -> {name: Popen}."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    run = lambda argv: subprocess.Popen(
+        [sys.executable] + argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    procs = {a: run(["-m", "repro_torch.launch.dryrun", "--arch", a,
+                     "--shape", "decode_32k", "--mesh", "single", "--tag",
+                     "smoke", "--out", str(out_dir)]) for a in LLM_ARCHS}
+    procs["one_rank"] = run([str(ROOT / "chip_smoke.py"), "--llm-count",
+                             str(Path(out_dir) / "one_rank.json")])
+    return procs
+
+
+def llm_count(out_path: str, arch: str = LLM_COUNT_SHAPE["arch"],
+              batch: int = LLM_COUNT_SHAPE["batch"],
+              seq: int = LLM_COUNT_SHAPE["seq"]):
+    """Phase 23 (b)'s child: ``arch``'s prefill at ``batch`` x ``seq`` on
+    a one-rank (1, 1) mesh over a fake group, on meta DTensors under the
+    operator counter (``dryrun.count_cell``) -> JSON at ``out_path``."""
+    import logging
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh, fake_group
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    with fake_group(1):
+        mesh = device_mesh((1, 1), ("data", "model"))
+        _, args_b, f, note = dryrun.count_cell(
+            get_config(arch), ShapeCell("serve", seq, batch, "prefill"),
+            mesh)
+    Path(out_path).write_text(json.dumps(dict(
+        arch=arch, batch=batch, seq=seq, counted=note,
+        count_s=time.perf_counter() - t0, argument_bytes=args_b,
+        peak_temp_bytes=f["peak_temp_bytes"],
+        total_bytes=args_b + f["peak_temp_bytes"],
+        matmul_flops=f["matmul_flops"])))
+
+
+def finish_llm_dryruns(procs: dict, out_dir, card_gb=None) -> dict:
+    """Wait for phase 23's children. (a) each record ``ok`` on 256 ranks,
+    its argument bytes exactly the JAX package's (``JAX_REFERENCE``),
+    its matrix flops and collective bytes > 0, printed beside the JAX
+    figures with their ratios (GSPMD's partition is not the port's: no
+    gate); (b) the one-rank count's arguments + eager peak beside
+    ``card_gb`` (phase 22's max_memory_allocated): a reading."""
+    from repro_torch.launch.dryrun import JAX_REFERENCE
+    out = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"phase 23 {name} exited "
+                                 f"{proc.returncode}:\n{text[-2000:]}")
+    for arch in LLM_ARCHS:
+        rec = json.loads((Path(out_dir) / f"smoke_{arch}_decode_32k_single"
+                          f".json").read_text())
+        ref = JAX_REFERENCE[(arch, "decode_32k", "single")]
+        pd, mem = rec["per_device"], rec["memory"]
+        if rec["status"] != "ok" or rec["chips"] != 256 or \
+                mem["argument_bytes"] != ref[0] or \
+                not pd["matmul_flops"] > 0 or not pd["collective_bytes"] > 0:
+            raise AssertionError(f"phase 23 {arch}: {rec}")
+        out[arch] = dict(
+            count_s=rec["count_s"], counted=rec["counted"],
+            argument_bytes=mem["argument_bytes"],
+            temp_bytes=mem["temp_bytes"], matmul_flops=pd["matmul_flops"],
+            collective_bytes=pd["collective_bytes"],
+            collectives=pd["collectives"],
+            dominant=rec["roofline"]["dominant"],
+            bound_s=rec["roofline"]["bound_s"],
+            jax=rec["jax_reference"],
+            flops_vs_jax=pd["matmul_flops"] / ref[2],
+            collective_vs_jax=pd["collective_bytes"] / ref[3],
+            temp_vs_jax=mem["temp_bytes"] / ref[1])
+    one = json.loads((Path(out_dir) / "one_rank.json").read_text())
+    if card_gb is not None:
+        one["card_max_memory_allocated_gb"] = card_gb
+    out["one_rank_prefill"] = one
+    return out
+
+
+def llm_dryrun_phase(card_gb=None) -> dict:
+    """Phase 23: the LLM production dry run on meta tensors (no device):
+    ``start_llm_dryruns`` then ``finish_llm_dryruns``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_llm_dryruns(tmp)
+        try:
+            return finish_llm_dryruns(procs, tmp, card_gb)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
 
 
 # ------------------------------------------------------------- phases 20-21
@@ -3947,9 +4233,14 @@ def main(argv=None) -> int:
                     help="write the full profiler tables to this file")
     ap.add_argument("--path-merge-cpu", nargs=2, default=None,
                     help=argparse.SUPPRESS)   # phase 10's child process
+    ap.add_argument("--llm-count", default=None,
+                    help=argparse.SUPPRESS)   # phase 23 (b)'s child
     args = ap.parse_args(argv)
     if args.path_merge_cpu:
         path_merge_cpu(args.path_merge_cpu[0], int(args.path_merge_cpu[1]))
+        return 0
+    if args.llm_count:
+        llm_count(args.llm_count)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -3977,7 +4268,7 @@ def main(argv=None) -> int:
 
 
 def card_phases(args, name: str, child) -> int:
-    """Phases 2-21 on the card; ``child`` is phase 10's CPU PathMerge."""
+    """Phases 2-23 on the card; ``child`` is phase 10's CPU PathMerge."""
     import torch
     from repro_torch.core import load_graph
     from repro_torch.graph import graph500
@@ -4172,10 +4463,32 @@ def card_phases(args, name: str, child) -> int:
     log(f"phase 19: {time.perf_counter() - t:.1f} s")
     # 20-21. training qwen2-moe-a2.7b; the audio and vision frontends
     phase2x = training_phases(args.profile_out)
+
+    # 22. stablelm-12b, yi-34b and llama4-maverick served at full width
+    t = time.perf_counter()
+    phase22 = llm_phase(args.profile_out)
+    for k, v in phase22.items():
+        log(f"phase 22: {k} {json.dumps(v)}")
+    log(f"phase 22: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 23. the LLM production dry run on meta tensors (no device)
+    t = time.perf_counter()
+    phase23 = llm_dryrun_phase(
+        phase22["stablelm-12b"]["max_memory_allocated_gb"])
+    for k, v in phase23.items():
+        log(f"phase 23: {k} {json.dumps(v)}")
+    log(f"phase 23: {time.perf_counter() - t:.1f} s")
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     gmm = next(k for k in kernels if k["name"] == "moe_gmm")
+    llama4 = phase22["llama4-maverick-400b-a17b"]["launches"]
     gmm["launches_by_path"] = {
         "qwen2-moe-a2.7b serving": s_launches["moe_gmm"],
+        f"llama4-maverick serving ({LLAMA4_LAYERS} layers)":
+            llama4["moe_gmm"],
+        "phase 22 reduced configs": sum(
+            r["launches"]["moe_gmm"]
+            for r in phase22["reduced_card_vs_cpu"].values()),
         f"qwen2-moe-a2.7b training ({TRAIN_LAYERS} layers, {TRAIN_STEPS} "
         "steps)": phase2x["trainer"]["launches"]["moe_gmm"]}
     flash["launches_by_path"] = {
@@ -4194,7 +4507,16 @@ def card_phases(args, name: str, child) -> int:
         "hubert-xlarge encode + 2 train steps (hd 80)":
             phase2x["hubert"]["launches"]["flash_attention"],
         "internvl2-76b serving (2 layers)":
-            phase2x["internvl2"]["launches"]["flash_attention"]}
+            phase2x["internvl2"]["launches"]["flash_attention"],
+        "stablelm-12b serving (hd 160)":
+            phase22["stablelm-12b"]["launches"]["flash_attention"],
+        f"yi-34b serving ({YI_LAYERS} layers, 56 heads over 8)":
+            phase22["yi-34b"]["launches"]["flash_attention"],
+        f"llama4-maverick serving ({LLAMA4_LAYERS} layers)":
+            llama4["flash_attention"],
+        "phase 22 reduced configs": sum(
+            r["launches"]["flash_attention"]
+            for r in phase22["reduced_card_vs_cpu"].values())}
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

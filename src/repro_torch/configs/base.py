@@ -1,5 +1,4 @@
-"""Model configuration system (a copy of the JAX package's, without its
-shape cells).
+"""Model / run configuration system (a copy of the JAX package's).
 
 Every assigned architecture pins an exact published shape via ``ModelConfig``.
 ``reduced()`` produces the same-family tiny config used by CPU smoke tests.
@@ -191,6 +190,45 @@ def _ssm_params(cfg: ModelConfig, s: SSMConfig) -> int:
     n += nheads * 2                          # A_log, D
     n += d_in * d                            # out_proj
     return n
+
+
+# ---------------------------------------------------------------------------
+# Shape cells (assigned input shapes)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def runnable_cells(cfg: ModelConfig) -> dict:
+    """Which of the four shape cells run for this arch; value = reason if
+    skipped else None."""
+    out = {}
+    subquadratic = (
+        cfg.family in ("ssm", "hybrid")
+        or "local" in cfg.attn.pattern
+    )
+    for name, cell in SHAPES.items():
+        reason = None
+        if cell.kind == "decode" and cfg.is_encoder:
+            reason = "encoder-only arch: no decode step"
+        elif name == "long_500k" and not subquadratic:
+            reason = "pure full-attention arch: long_500k needs sub-quadratic attention"
+        out[name] = reason
+    return out
 
 
 # registry populated by configs/__init__.py

@@ -105,15 +105,50 @@ class GroupedMatmul(torch.autograd.Function):
         return dx, dw, None
 
 
+# the operator counter's by_op key of the kernel on meta tensors
+META_OP = "moe_gmm.meta"
+
+
+class GroupedMatmulMeta(torch.autograd.Function):
+    """The kernel on meta tensors (no group sizes to read): the output's
+    shape, and its work charged to the running counter: 2 d f flops a
+    row, the rows and every expert's weights read and the output written
+    once; backward dX (the same product on W^T) and dW (2 d f a row, the
+    rows and dY read, dW written)."""
+
+    @staticmethod
+    def forward(ctx, tokens, w, group_sizes):
+        from repro_torch.launch import op_cost
+        (T, d), f = tokens.shape, w.shape[-1]
+        out = torch.empty((T, f), dtype=tokens.dtype, device=tokens.device)
+        io = sum(t.numel() * t.element_size() for t in (tokens, w, out))
+        op_cost.charge(META_OP, float(io), 2.0 * T * d * f, matmul=True)
+        ctx.like = [(t.shape, t.dtype) for t in (tokens, w)]
+        ctx.io = io
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.launch import op_cost
+        ((T, d), _), ((_, _, f), _) = ctx.like
+        op_cost.charge(META_OP + ".backward", float(2 * ctx.io),
+                       4.0 * T * d * f, matmul=True)
+        return tuple(torch.empty(s, dtype=t, device="meta")
+                     for s, t in ctx.like) + (None,)
+
+
 def grouped_matmul(tokens: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """tokens: (T, d) expert-sorted; w: (E, d, f); group_sizes: (E,).
     -> (T, f), out[t] = tokens[t] @ w[expert_of(t)]. The kernel on CUDA
     tensors (one launch; differentiable through ``GroupedMatmul``), the
-    plain version under autograd on CPU tensors."""
+    plain version under autograd on CPU tensors, the output's shape and
+    the kernel's charged work on meta tensors (``GroupedMatmulMeta``)."""
     dev = tokens.device
     if dev.type == "cpu":
         return grouped_matmul_ref(tokens, w, group_sizes)
+    if dev.type == "meta":       # the operator counter's dry run
+        return GroupedMatmulMeta.apply(tokens, w, group_sizes)
     if dev.type != "cuda":
         raise ValueError(f"grouped_matmul: no kernel for device {dev}")
     return GroupedMatmul.apply(tokens.contiguous(), w.contiguous(),

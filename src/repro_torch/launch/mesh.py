@@ -14,14 +14,19 @@ rank's device. The backend rule is fixed, not a fallback:
 The production mesh is the reference's (16, 16) or (2, 16, 16) pod
 mesh: one rank a device, 256 or 512 of them. It is a description too: a
 real run needs a ``torch.distributed`` world of exactly that many ranks
-(``require_world``), and the dry run (``launch/pregel_run.py
---dryrun``) stands rank 0 of it up over a fake group.
+(``require_world``), and the dry runs (``launch/pregel_run.py
+--dryrun``, ``launch/dryrun.py``) stand rank 0 of it up over a fake
+group (``fake_group``). Over such a group (or a real world of its size)
+``ProductionMesh.device_mesh`` builds the ``torch.distributed``
+``DeviceMesh`` the LLM dry run places its DTensors on; ``device_mesh``
+builds any other (the tests' (2, 2) and (2, 1, 2) meshes).
 
 Nothing here touches a device at import time.
 """
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -106,6 +111,39 @@ class ProductionMesh:
             n *= d
         return n
 
+    def device_mesh(self):
+        """This mesh as a ``DeviceMesh`` over the default process group
+        (which must have ``n_ranks`` ranks: a real world, or
+        ``fake_group``)."""
+        return device_mesh(self.dims, self.axis_names)
+
+
+def device_mesh(dims, axis_names):
+    """A CPU ``DeviceMesh`` of ``dims`` named ``axis_names`` over the
+    default process group, which must have prod(dims) ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", tuple(dims),
+                            mesh_dim_names=tuple(axis_names))
+
+
+@contextmanager
+def fake_group(world: int):
+    """A default process group of ``world`` ranks with this process as
+    rank 0, over c10d's ``fake`` backend: its collectives move nothing
+    and accept meta tensors. Destroyed on exit; refused when a default
+    group already exists (the dry run would replace it)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("the dry run stands up its own fake process "
+                           "group: a default group already exists")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
 
 def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
     """The reference's (16, 16) ("data", "model") mesh of 256 ranks, or
@@ -134,13 +172,26 @@ def require_world(mesh: ProductionMesh) -> int:
     return dist.get_rank()
 
 
+def axis_names(mesh) -> tuple:
+    """The axis names of a mesh: a description's, or a ``DeviceMesh``'s
+    dimension names."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    if hasattr(mesh, "mesh_dim_names"):
+        return mesh.size(axis_names(mesh).index(name))
+    return mesh.shape[name]
+
+
 def dp_axes(mesh) -> tuple:
     """The data-parallel axes of a mesh (('pod','data') when multi-pod)."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
 
 
 def batch_axis_size(mesh) -> int:
     n = 1
     for a in dp_axes(mesh):
-        n *= mesh.shape[a]
+        n *= axis_size(mesh, a)
     return n

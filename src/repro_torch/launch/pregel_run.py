@@ -43,11 +43,11 @@ import json
 import math
 import os
 import time
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
 from repro_torch.core.plan import KERNEL_IMPLS
+from repro_torch.launch.mesh import fake_group
 
 ALGOS = ("pagerank", "sssp", "cc")
 
@@ -526,25 +526,6 @@ def dryrun_auto_plan(program, n_vertices: int, n_edges: int, P_total: int,
                    msg_dims=program.msg_dims)
     return choose(program, g, Observation(frontier_density=1.0),
                   machine=machine)[0]
-
-
-@contextmanager
-def fake_group(world: int):
-    """A default process group of ``world`` ranks with this process as
-    rank 0, over c10d's ``fake`` backend: its collectives move nothing
-    and accept meta tensors. Destroyed on exit; refused when a default
-    group already exists (the dry run would replace it)."""
-    import torch.distributed as dist
-    if dist.is_initialized():
-        raise RuntimeError("the dry run stands up its own fake process "
-                           "group: a default group already exists")
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", rank=0, world_size=world,
-                            store=FakeStore())
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
 
 
 def pregel_dryrun(algo: str, scale: str, mesh_kind: str, plan) -> dict:

@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import rope
+from repro_torch.models import sharded
 from repro_torch.models.param import Spec
 
 NEG_INF = -1e30
@@ -31,13 +32,26 @@ Q_BLOCK = 512                 # query rows a block of the local path
 
 
 def attn_specs(cfg: ModelConfig) -> dict:
+    """Heads sharded on "model" (TP), as the JAX package's. Where the
+    heads do not divide the axis (yi 56, llama4 40) the projections are
+    replicated (FSDP still shards their storage) and the sharded
+    attention runs sequence-parallel: queries sharded on S, K/V whole."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
+    if h % 16:
+        rep = (None, None, None)
+        return {
+            "wq": Spec((d, h, hd), fan_in=d, placement=rep),
+            "wk": Spec((d, kv, hd), fan_in=d, placement=rep),
+            "wv": Spec((d, kv, hd), fan_in=d, placement=rep),
+            "wo": Spec((h, hd, d), fan_in=h * hd, placement=rep),
+        }
     return {
-        "wq": Spec((d, h, hd), fan_in=d),
-        "wk": Spec((d, kv, hd), fan_in=d),
-        "wv": Spec((d, kv, hd), fan_in=d),
-        "wo": Spec((h, hd, d), fan_in=h * hd),
+        "wq": Spec((d, h, hd), fan_in=d, placement=(None, "model", None)),
+        "wk": Spec((d, kv, hd), fan_in=d, placement=(None, "model", None)),
+        "wv": Spec((d, kv, hd), fan_in=d, placement=(None, "model", None)),
+        "wo": Spec((h, hd, d), fan_in=h * hd,
+                   placement=("model", None, None)),
     }
 
 
@@ -197,6 +211,8 @@ def _recursive_causal(qg, k, v, qoff, koff, scale, q_block, kv_block,
 
 def _proj_in(x, w):
     """(B,S,d) @ (d,h,hd) -> (B,S,h,hd)."""
+    if sharded.is_dtensor(x):
+        return sharded.proj_in(x, w)
     d, h, hd = w.shape
     return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
@@ -204,13 +220,20 @@ def _proj_in(x, w):
 def _proj_out(o, w):
     """(B,S,h,hd) @ (h,hd,d) -> (B,S,d)."""
     h, hd, d = w.shape
-    return o.flatten(-2) @ w.reshape(h * hd, d)
+    out = o.flatten(-2) @ w.reshape(h * hd, d)
+    if sharded.is_dtensor(out):       # the dry run's sharded model
+        return sharded.settle(out)
+    return out
 
 
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     local: bool, positions: torch.Tensor,
                     causal_mode: str = "masked_full"):
     """Training/prefill path. x: (B,S,d). Returns (out, (k, v))."""
+    if sharded.is_dtensor(x):         # the dry run's sharded model
+        return sharded.apply_attention(p, x, cfg, local=local,
+                                       positions=positions,
+                                       causal_mode=causal_mode)
     q = _proj_in(x, p["wq"])
     k = _proj_in(x, p["wk"])
     v = _proj_in(x, p["wv"])

@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 from repro_torch.models.param import Spec
 
 # ---------------------------------------------------------------------------
@@ -13,9 +14,11 @@ from repro_torch.models.param import Spec
 
 
 def norm_specs(d: int, kind: str) -> dict:
-    out = {"scale": Spec((d,), "ones", dtype=torch.float32)}
+    out = {"scale": Spec((d,), "ones", dtype=torch.float32,
+                         placement=(None,))}
     if kind == "layernorm":
-        out["bias"] = Spec((d,), "zeros", dtype=torch.float32)
+        out["bias"] = Spec((d,), "zeros", dtype=torch.float32,
+                           placement=(None,))
     return out
 
 
@@ -55,39 +58,45 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP
+# SwiGLU MLP (TP: d_ff sharded on "model")
 # ---------------------------------------------------------------------------
 
 
 def mlp_specs(d: int, d_ff: int) -> dict:
     return {
-        "w_gate": Spec((d, d_ff), fan_in=d),
-        "w_up": Spec((d, d_ff), fan_in=d),
-        "w_down": Spec((d_ff, d), fan_in=d_ff),
+        "w_gate": Spec((d, d_ff), fan_in=d, placement=(None, "model")),
+        "w_up": Spec((d, d_ff), fan_in=d, placement=(None, "model")),
+        "w_down": Spec((d_ff, d), fan_in=d_ff, placement=("model", None)),
     }
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if sharded.is_dtensor(x):         # the dry run's sharded model
+        return sharded.mlp(p, x)
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     return (F.silu(g) * u) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------
-# Embedding / unembedding
+# Embedding / unembedding (vocab sharded on "model")
 # ---------------------------------------------------------------------------
 
 
 def embed_specs(cfg: ModelConfig) -> dict:
     out = {"embedding": Spec((cfg.vocab_size, cfg.d_model),
-                             fan_in=cfg.d_model)}
+                             fan_in=cfg.d_model,
+                             placement=("model", None))}
     if not cfg.tie_embeddings:
         out["unembed"] = Spec((cfg.d_model, cfg.vocab_size),
-                              fan_in=cfg.d_model)
+                              fan_in=cfg.d_model,
+                              placement=(None, "model"))
     return out
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if sharded.is_dtensor(tokens):    # the dry run's sharded model
+        return sharded.embed(p["embedding"], tokens)
     return p["embedding"][tokens.long()]
 
 

@@ -17,6 +17,11 @@ layer (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
 ``jax.checkpoint`` of its scan body does, so a backward pass holds one
 layer's activations at a time and replays that layer's forward.
 
+On DTensor parameters and inputs (the production dry run) the same
+forwards run sharded: the pieces DTensor has no rule for go to
+``models/sharded.py``, the caches are placed as the dry run's (``_put``,
+``_store_prompt_kv`` and ``_attn_decode_cached`` hand them over).
+
 Local caches are laid out ring-aligned from prefill on: position p lives
 at slot p % window. The JAX package's prefill instead stores the prompt's
 last ``window`` positions at slots 0 .. window-1, which its ring decode
@@ -27,12 +32,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (apply_attention,
                                           apply_attention_decode, attn_specs,
@@ -41,8 +48,10 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        embed_specs, mlp_specs, norm_specs,
                                        unembed)
 from repro_torch.models.moe import apply_moe, moe_specs
-from repro_torch.models.param import (DTYPES, ParamTree, Spec, layer_views,
-                                      materialize, stack)
+from repro_torch.models.param import (DTYPES, ParamTree, Spec,
+                                      full_placement, layer_views,
+                                      materialize, sanitize, stack,
+                                      tree_map_specs)
 
 # ---------------------------------------------------------------------------
 # Stage plan
@@ -89,6 +98,70 @@ def stage_plan(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+FSDP_THRESHOLD_BYTES = 2 << 30  # params/TP16 above this -> FSDP over "data"
+
+
+def use_fsdp(cfg: ModelConfig) -> bool:
+    return cfg.param_count() * 2 / 16 > FSDP_THRESHOLD_BYTES
+
+
+def resolve_profile(cfg: ModelConfig, profile: str = "auto") -> str:
+    """Sharding profile, as the JAX package's:
+    * "zero": pure ZeRO-3 data parallelism over the flattened (data,
+      model) axes, each leaf sharded on its largest dim, no tensor
+      parallelism;
+    * "tp": tensor parallelism on "model" (+ FSDP over "data" for archs
+      whose params/16 exceed 2 GiB). "auto" is "tp", the JAX package's
+      production default."""
+    return "tp" if profile == "auto" else profile
+
+
+def _zero_transform(tree):
+    """Replace every Spec's placement with ZeRO-3: largest dim sharded
+    over ("data", "model") when divisible by 256, else "data" when by 16,
+    else replicated."""
+    def f(s: Spec):
+        spec = [None] * len(s.shape)
+        if math.prod(s.shape) >= 4096:
+            for axes, n in ((("data", "model"), 256), (("data",), 16)):
+                placed = False
+                for j in sorted(range(len(s.shape)),
+                                key=lambda k: -s.shape[k]):
+                    if s.shape[j] % n == 0 and s.shape[j] > 1:
+                        spec[j] = axes if len(axes) > 1 else axes[0]
+                        placed = True
+                        break
+                if placed:
+                    break
+        return dataclasses.replace(s, placement=tuple(spec))
+
+    return tree_map_specs(f, tree)
+
+
+def _axis_names(placement) -> set:
+    out = set()
+    for e in placement:
+        out.update(e if isinstance(e, tuple) else (e,))
+    return out
+
+
+def _add_fsdp(tree):
+    """ZeRO-3/FSDP: insert "data" into the largest unsharded dim of big
+    matrices (each is all-gathered where a layer uses it; its gradient
+    reduce-scatters)."""
+    def f(s: Spec):
+        if math.prod(s.shape) * 2 < (1 << 20) or \
+                "data" in _axis_names(s.placement):
+            return s
+        spec = full_placement(s)
+        for i in sorted(range(len(s.shape)), key=lambda i: -s.shape[i]):
+            if spec[i] is None and s.shape[i] % 16 == 0:
+                spec[i] = "data"
+                return dataclasses.replace(s, placement=tuple(spec))
+        return s
+    return tree_map_specs(f, tree)
+
+
 def _sublayer_specs(cfg: ModelConfig, sub: SubLayer) -> dict:
     d = cfg.d_model
     if sub.kind == "ssm":
@@ -111,27 +184,35 @@ def _shared_block_specs(cfg: ModelConfig) -> dict:
             "norm2": norm_specs(d, cfg.norm), "mlp": mlp_specs(d, cfg.d_ff)}
 
 
-def model_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree's shapes, under the JAX package's names. An
-    audio model's ``embed`` holds only its ``unembed`` (its inputs are
-    frame embeddings); a vision model adds ``vision_proj.w``."""
+def model_specs(cfg: ModelConfig, profile: str = "auto") -> dict:
+    """The parameter tree's shapes and placements, under the JAX
+    package's names, for sharding ``profile`` ("auto" | "tp" | "zero":
+    ``resolve_profile``; the shapes do not depend on it). An audio
+    model's ``embed`` holds only its ``unembed`` (its inputs are frame
+    embeddings); a vision model adds ``vision_proj.w``."""
+    profile = resolve_profile(cfg, profile)
+    fsdp = profile == "tp" and use_fsdp(cfg)
+    tr = _zero_transform if profile == "zero" else \
+        (_add_fsdp if fsdp else (lambda t: t))
     stages = []
     for subs, repeats in stage_plan(cfg):
         period = {f"sub{i}": _sublayer_specs(cfg, s)
                   for i, s in enumerate(subs)}
-        stages.append(stack(period, repeats))
+        stages.append(stack(sanitize(tr(period)), repeats))
     d = cfg.d_model
     embed_s = embed_specs(cfg)
     if cfg.frontend == "audio":
-        embed_s = {"unembed": Spec((d, cfg.vocab_size), fan_in=d)}
-    specs = {"embed": embed_s,
+        embed_s = {"unembed": Spec((d, cfg.vocab_size), fan_in=d,
+                                   placement=(None, "model"))}
+    specs = {"embed": tr(embed_s),
              "final_norm": norm_specs(d, cfg.norm),
              "stages": stages}
     if cfg.shared_attn_every:
-        specs["shared_block"] = _shared_block_specs(cfg)
+        specs["shared_block"] = tr(_shared_block_specs(cfg))
     if cfg.frontend == "vision":
-        specs["vision_proj"] = {"w": Spec((d, d), fan_in=d)}
-    return specs
+        specs["vision_proj"] = {"w": Spec((d, d), fan_in=d,
+                                          placement=(None, None))}
+    return sanitize(specs)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -227,6 +308,8 @@ def _store_prompt_kv(c: dict, layer: int, k, v):
     """The prompt's K/V (B, S, KV, hd) into a cache of C slots: the last
     min(C, S) positions, position p at slot p % C (a ring wraps; a cache
     of at least S slots takes every position at its own index)."""
+    if sharded.is_dtensor(k):         # the dry run's sharded model
+        return sharded.store_prompt_kv(c, layer, k, v)
     C = (c["k8"] if "k8" in c else c["k"]).shape[2]
     S = k.shape[1]
     n = min(C, S)
@@ -239,6 +322,14 @@ def _store_prompt_kv(c: dict, layer: int, k, v):
                   v[:, S - n + first:])
 
 
+def _put(dst: torch.Tensor, layer: int, t: torch.Tensor):
+    """``dst[layer] = t`` (a state into its stacked cache)."""
+    if sharded.is_dtensor(t):
+        sharded.put_layer(dst, layer, t)
+    else:
+        dst[layer] = t
+
+
 def _attn_decode_cached(p, x, c: dict, layer: int, cache_len: int,
                         cfg: ModelConfig, *, local: bool):
     """Decode one token against layer ``layer`` of cache ``c``. An int8
@@ -246,6 +337,9 @@ def _attn_decode_cached(p, x, c: dict, layer: int, cache_len: int,
     copy at full precision (as the JAX package attends to it), and only
     the token's slot quantized into the int8 cache; the JAX package
     re-quantizes every row each step instead."""
+    if sharded.is_dtensor(x):         # the dry run's sharded model
+        return sharded.attn_decode_cached(p, x, c, layer, cache_len, cfg,
+                                          local=local)
     if "k8" not in c:
         out, _, _ = apply_attention_decode(p, x, c["k"][layer], c["v"][layer],
                                            cache_len, cfg, local=local)
@@ -374,8 +468,12 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
     positions = torch.arange(S, device=x.device)[None, :]
     if max_len is not None and max_len < S:
         raise ValueError(f"max_len={max_len} < prompt length {S}")
-    caches = init_caches(cfg, B, max_len or S, quantize=quantize,
-                         device=x.device)
+    if sharded.is_dtensor(x):         # the dry run's sharded model
+        caches = sharded.init_caches(cfg, B, max_len or S,
+                                     quantize=quantize, like=x)
+    else:
+        caches = init_caches(cfg, B, max_len or S, quantize=quantize,
+                             device=x.device)
     sp = params["shared_block"] if cfg.shared_attn_every else None
     for si, (subs, _) in enumerate(stage_plan(cfg)):
         for layer, layer_p in enumerate(layer_views(params["stages"][si])):
@@ -386,7 +484,7 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
                 if sub.kind == "ssm":
                     x, st = _prefill_ssm(p["ssm"], h, x, cfg)
                     for name, t in st.items():
-                        c[name][layer] = t
+                        _put(c[name], layer, t)
                 else:
                     a, (k, v) = apply_attention(
                         p["attn"], h, cfg, local=sub.kind == "attn_local",
@@ -401,8 +499,7 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
                                                 positions=positions,
                                                 causal_mode=causal_mode)
                     x = _shared_mlp(sp, x + a, cfg)
-                    _store_kv(caches[si][f"shared{i}"], layer, slice(0, S),
-                              k, v)
+                    _store_prompt_kv(caches[si][f"shared{i}"], layer, k, v)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x[:, -1:], caches
 
@@ -433,7 +530,7 @@ def forward_decode(params, tokens, caches, cache_len: int,
                                             c.items()}, cfg)
                     x = x + y
                     for name, t in st.items():
-                        c[name][layer] = t
+                        _put(c[name], layer, t)
                 else:
                     a = _attn_decode_cached(
                         p["attn"], h, c, layer, cache_len, cfg,

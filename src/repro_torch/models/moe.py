@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models.layers import apply_mlp, mlp_specs
+from repro_torch.models import sharded
 from repro_torch.models.param import Spec
 
 
@@ -34,11 +35,13 @@ def moe_specs(cfg: ModelConfig) -> dict:
     m = cfg.moe
     d, E, f = cfg.d_model, m.num_experts, m.d_expert
     Ep = padded_experts(E)
+    ep = ("model", None, None)          # experts sharded on "model"
     out = {
-        "router": Spec((d, E), fan_in=d, dtype=torch.float32),
-        "w_gate": Spec((Ep, d, f), fan_in=d),
-        "w_up": Spec((Ep, d, f), fan_in=d),
-        "w_down": Spec((Ep, f, d), fan_in=f),
+        "router": Spec((d, E), fan_in=d, dtype=torch.float32,
+                       placement=(None, None)),
+        "w_gate": Spec((Ep, d, f), fan_in=d, placement=ep),
+        "w_up": Spec((Ep, d, f), fan_in=d, placement=ep),
+        "w_down": Spec((Ep, f, d), fan_in=f, placement=ep),
     }
     if m.d_shared:
         out["shared"] = mlp_specs(d, m.d_shared)
@@ -61,6 +64,8 @@ def _route(p: dict, x: torch.Tensor, k: int):
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple:
     """x: (B,S,d) -> (out, aux_loss)."""
+    if sharded.is_dtensor(x):         # the dry run's sharded model
+        return sharded.apply_moe(p, x, cfg)
     if cfg.moe.dispatch == "sort":
         return _apply_moe_sort(p, x, cfg)
     return _apply_moe_scatter(p, x, cfg)

@@ -1,9 +1,13 @@
 """Parameter shapes, their initialisation, and the weight carry-across.
 
 Every layer declares its parameters as a nested dict of ``Spec`` leaves
-(shape + initializer), as the JAX package does, without its
-PartitionSpecs: the port runs on one card, and sharding is a later
-slice. ``materialize`` turns the tree into a ``ParamTree`` (an
+(shape + initializer + placement), as the JAX package does. A
+placement is the port's counterpart of a ``PartitionSpec``: a tuple
+with one entry per dimension, each ``None`` (replicated), a mesh axis
+name, or a tuple of axis names; ``placements`` gives the tree of them
+and ``launch/specs.py`` turns them into DTensor placements for the
+production dry run. ``materialize`` and the weight carry-across ignore
+them (the card path runs on one device). ``materialize`` turns the tree into a ``ParamTree`` (an
 ``nn.Module`` whose attributes carry the JAX names, so its
 ``state_dict`` keys read ``stages.0.sub0.attn.wq``) from an explicit
 ``torch.Generator`` on an explicit device. ``params_from_numpy`` builds
@@ -26,8 +30,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 # a leaf above this many bytes in float32 is drawn a block of leading
-# slices at a time (each block at most this size, or one slice), so the
-# full model never holds a float32 copy of its experts or embedding
+# slices at a time (each block at most this size; a slice larger than
+# that cut the same way), so the full model never holds a float32 copy
+# of its experts or embedding
 _CHUNK_BYTES = 1 << 30
 
 
@@ -37,17 +42,84 @@ class Spec:
     init: str = "normal"          # normal|zeros|ones|ssm_a_log|ssm_dt_bias
     fan_in: Optional[int] = None
     dtype: Optional[torch.dtype] = None  # overrides the model dtype
+    placement: tuple = ()         # a mesh axis (or axes, or None) a dim
 
 
 def is_spec(x) -> bool:
     return isinstance(x, Spec)
 
 
-def stack(tree, n: int):
-    """Prepend a layer axis of size n to every Spec."""
+def tree_map_specs(f, tree):
+    """``f`` applied to every Spec of a nested dict / list of Specs."""
     if is_spec(tree):
-        return dataclasses.replace(tree, shape=(n,) + tuple(tree.shape))
-    return {k: stack(v, n) for k, v in tree.items()}
+        return f(tree)
+    if isinstance(tree, list):
+        return [tree_map_specs(f, t) for t in tree]
+    return {k: tree_map_specs(f, v) for k, v in tree.items()}
+
+
+def full_placement(s: Spec) -> list:
+    """``s.placement`` padded with ``None`` to one entry a dimension."""
+    return list(s.placement) + [None] * (len(s.shape) - len(s.placement))
+
+
+def placements(tree):
+    """The tree of placements (the JAX package's ``pspecs``)."""
+    return tree_map_specs(lambda s: tuple(full_placement(s)), tree)
+
+
+# production mesh axis sizes (fixed: 16x16 single-pod, 2x16x16 multi-pod),
+# as the JAX package's: a placement must divide its dimension, so every
+# Spec is sanitized against these before use
+AXIS_SIZES = {"pod": 2, "data": 16, "model": 16}
+
+
+def _axes_size(entry) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, tuple):
+        n = 1
+        for a in entry:
+            n *= AXIS_SIZES[a]
+        return n
+    return AXIS_SIZES[entry]
+
+
+def sanitize(tree):
+    """Fix Specs whose sharded dims aren't divisible by the mesh axis: move
+    the axis to the largest divisible unsharded dim, else drop it."""
+    def fix(s: Spec) -> Spec:
+        spec = full_placement(s)
+        changed = False
+        big = math.prod(s.shape) * 2 >= (64 << 20)
+        for i, entry in enumerate(spec):
+            if entry is None:
+                continue
+            if s.shape[i] % _axes_size(entry) == 0:
+                continue
+            spec[i] = None
+            changed = True
+            if not big:
+                continue  # small tensor: replicate (avoids psum chatter)
+            # large tensor: relocate to the largest unsharded divisible dim
+            for j in sorted(range(len(s.shape)), key=lambda k: -s.shape[k]):
+                if spec[j] is None and s.shape[j] % _axes_size(entry) == 0 \
+                        and s.shape[j] > 1:
+                    spec[j] = entry
+                    break
+        if not changed:
+            return s
+        return dataclasses.replace(s, placement=tuple(spec))
+
+    return tree_map_specs(fix, tree)
+
+
+def stack(tree, n: int):
+    """Prepend a layer axis of size n (replicated) to every Spec."""
+    return tree_map_specs(
+        lambda s: dataclasses.replace(
+            s, shape=(n,) + tuple(s.shape),
+            placement=(None,) + tuple(s.placement)), tree)
 
 
 class ParamTree(nn.Module):
@@ -80,11 +152,26 @@ def layer_views(tree: ParamTree) -> list:
     ``t.unbind(0)`` gives (layer i's ``t[i]``). Under autograd one
     backward node a leaf stacks the layers' gradients, where ``t[i]``
     taken a layer at a time would each write a full-size zero gradient
-    to be summed."""
+    to be summed. A sharded model's gathering view of a stage
+    (``models/sharded.py``) gives its own."""
+    if not isinstance(tree, ParamTree):
+        return tree.layer_views()
     parts = {k: v.unbind(0) for k, v in tree._parameters.items()}
     parts.update({k: layer_views(m) for k, m in tree._modules.items()})
     n = len(next(iter(parts.values())))
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _pieces(t: torch.Tensor) -> list:
+    """``t`` cut along its leading axes into views of at most
+    _CHUNK_BYTES in float32 (as many leading rows as fit; a row larger
+    than that cut the same way)."""
+    if t.numel() * 4 <= _CHUNK_BYTES or t.dim() == 0:
+        return [t]
+    row = t[0].numel()
+    if row * 4 > _CHUNK_BYTES:
+        return [p for r in t for p in _pieces(r)]
+    return list(t.split(_CHUNK_BYTES // (4 * row)))
 
 
 def _init_leaf(spec: Spec, gen: torch.Generator, device,
@@ -111,10 +198,7 @@ def _init_leaf(spec: Spec, gen: torch.Generator, device,
     fan = spec.fan_in or (spec.shape[0] if spec.shape else 1)
     scale = 1.0 / math.sqrt(max(fan, 1))
     out = torch.empty(spec.shape, dtype=dt, device=device)
-    n = math.prod(spec.shape)
-    pieces = [out] if n * 4 <= _CHUNK_BYTES or not spec.shape else \
-        list(out.split(max(1, _CHUNK_BYTES // (4 * out[0].numel()))))
-    for piece in pieces:
+    for piece in _pieces(out):
         piece.copy_(torch.randn(piece.shape, generator=gen,
                                 dtype=torch.float32, device=device) * scale)
     return out

@@ -12,7 +12,9 @@ The SSD form takes any sequence length: a tail that does not fill a chunk
 is padded with dt = 0 (decay 1, no input), which leaves the state as it
 was. Both train under autograd as they stand; only the scan changes
 with gradients on, keeping each token's state as a new tensor where
-serving writes it in place.
+serving writes it in place. On ``meta`` tensors (the operator counter's
+dry run) the Mamba1 scan's token loop is not walked: ``Mamba1ScanMeta``
+returns its outputs' shapes and charges its work.
 """
 from __future__ import annotations
 
@@ -22,9 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 from repro_torch.models.param import Spec
 
 SCAN_CHUNK = 128              # tokens a chunk of the Mamba1 scan
+M = "model"                   # the tensor-parallel mesh axis
 
 # ---------------------------------------------------------------------------
 # Depthwise causal conv1d (k small; k shifted adds)
@@ -70,16 +74,57 @@ def mamba1_specs(cfg: ModelConfig) -> dict:
     d_in = s.expand * d
     r = s.dt_rank or d // 16
     return {
-        "in_proj": Spec((d, 2 * d_in), fan_in=d),
-        "conv_w": Spec((d_in, s.d_conv), init="normal", fan_in=s.d_conv),
-        "conv_b": Spec((d_in,), "zeros"),
-        "x_proj": Spec((d_in, r + 2 * s.d_state), fan_in=d_in),
-        "dt_proj": Spec((r, d_in), fan_in=r),
-        "dt_bias": Spec((d_in,), "ssm_dt_bias", dtype=torch.float32),
-        "A_log": Spec((d_in, s.d_state), "ssm_a_log", dtype=torch.float32),
-        "D": Spec((d_in,), "ones", dtype=torch.float32),
-        "out_proj": Spec((d_in, d), fan_in=d_in),
+        "in_proj": Spec((d, 2 * d_in), fan_in=d, placement=(None, M)),
+        "conv_w": Spec((d_in, s.d_conv), init="normal", fan_in=s.d_conv,
+                       placement=(M, None)),
+        "conv_b": Spec((d_in,), "zeros", placement=(M,)),
+        "x_proj": Spec((d_in, r + 2 * s.d_state), fan_in=d_in,
+                       placement=(M, None)),
+        "dt_proj": Spec((r, d_in), fan_in=r, placement=(None, M)),
+        "dt_bias": Spec((d_in,), "ssm_dt_bias", dtype=torch.float32,
+                        placement=(M,)),
+        "A_log": Spec((d_in, s.d_state), "ssm_a_log", dtype=torch.float32,
+                      placement=(M, None)),
+        "D": Spec((d_in,), "ones", dtype=torch.float32, placement=(M,)),
+        "out_proj": Spec((d_in, d), fan_in=d_in, placement=(M, None)),
     }
+
+
+# the operator counter's by_op key of the Mamba1 scan on meta tensors
+SCAN_META_OP = "mamba1_scan.meta"
+
+
+class Mamba1ScanMeta(torch.autograd.Function):
+    """The selective scan on meta tensors: y (B,S,d_in) and the final
+    state (B,d_in,N) with no data, the work ``_mamba1_scan`` does charged
+    to the running counter: a token's decay, input term, state update and
+    output (about 8 flops an element of (B,S,d_in,N)), its chunk's decay
+    and state terms written and read once in float32, the inputs read and
+    y written once; the backward twice that."""
+
+    @staticmethod
+    def forward(ctx, A_log, D, xc, z, dt, Bc, Cc):
+        from repro_torch.launch import op_cost
+        B, S, d_in = xc.shape
+        N = Bc.shape[-1]
+        y = torch.empty((B, S, d_in), dtype=xc.dtype, device=xc.device)
+        h = torch.empty((B, d_in, N), dtype=torch.float32, device=xc.device)
+        io = sum(t.numel() * t.element_size()
+                 for t in (A_log, D, xc, z, dt, Bc, Cc, y, h))
+        ctx.cost = (float(io + 4 * 2 * B * S * d_in * N * 4),
+                    8.0 * B * S * d_in * N)
+        op_cost.charge(SCAN_META_OP, *ctx.cost)
+        ctx.like = [(t.shape, t.dtype)
+                    for t in (A_log, D, xc, z, dt, Bc, Cc)]
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        from repro_torch.launch import op_cost
+        op_cost.charge(SCAN_META_OP + ".backward", 2 * ctx.cost[0],
+                       2 * ctx.cost[1])
+        return tuple(torch.empty(s, dtype=t, device="meta")
+                     for s, t in ctx.like)
 
 
 def _mamba1_scan(p, xc, z, dt, Bc, Cc, chunk: int = SCAN_CHUNK):
@@ -87,6 +132,8 @@ def _mamba1_scan(p, xc, z, dt, Bc, Cc, chunk: int = SCAN_CHUNK):
     h_t . C_t, in float32, a chunk at a time. xc, z: (B,S,d_in); dt:
     (B,S,d_in) f32; Bc, Cc: (B,S,N). -> (y in xc's dtype, final state
     (B,d_in,N))."""
+    if xc.device.type == "meta":
+        return Mamba1ScanMeta.apply(p["A_log"], p["D"], xc, z, dt, Bc, Cc)
     A = -torch.exp(p["A_log"])                        # (d_in, N) f32
     B, S, d_in = xc.shape
     N = Bc.shape[-1]
@@ -138,6 +185,8 @@ def apply_mamba1(p: dict, x: torch.Tensor, cfg: ModelConfig):
 def apply_mamba1_with_state(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B,S,d) -> (out (B,S,d), decode state: the conv tail and the
     final recurrent state)."""
+    if sharded.is_dtensor(x):         # the dry run's sharded model
+        return sharded.apply_ssm(apply_mamba1_with_state, p, x, cfg)
     x_, z, xc, dt, Bc, Cc = _mamba1_inputs(p, x, cfg)
     y, h = _mamba1_scan(p, xc, z, dt, Bc, Cc)
     out = y @ p["out_proj"]
@@ -156,6 +205,8 @@ def mamba1_init_state(cfg: ModelConfig, batch: int, dtype, device):
 def apply_mamba1_decode(p: dict, x_t: torch.Tensor, state: dict,
                         cfg: ModelConfig):
     """x_t: (B,1,d). -> (y_t (B,1,d), new state)."""
+    if sharded.is_dtensor(x_t):
+        return sharded.apply_ssm(apply_mamba1_decode, p, x_t, cfg, state)
     s = cfg.ssm
     r = s.dt_rank or cfg.d_model // 16
     xz = (x_t @ p["in_proj"])[:, 0]
@@ -189,22 +240,28 @@ def mamba2_specs(cfg: ModelConfig) -> dict:
     d_in = s.expand * d
     H = d_in // s.head_dim
     return {
-        "wz": Spec((d, d_in), fan_in=d),
-        "wx": Spec((d, d_in), fan_in=d),
-        "wB": Spec((d, s.d_state), fan_in=d),
-        "wC": Spec((d, s.d_state), fan_in=d),
-        "wdt": Spec((d, H), fan_in=d),
-        "conv_w": Spec((d_in, s.d_conv), fan_in=s.d_conv),
-        "conv_b": Spec((d_in,), "zeros"),
-        "convB_w": Spec((s.d_state, s.d_conv), fan_in=s.d_conv),
-        "convB_b": Spec((s.d_state,), "zeros"),
-        "convC_w": Spec((s.d_state, s.d_conv), fan_in=s.d_conv),
-        "convC_b": Spec((s.d_state,), "zeros"),
-        "dt_bias": Spec((H,), "ssm_dt_bias", dtype=torch.float32),
-        "A_log": Spec((H,), "ssm_a_log", dtype=torch.float32),
-        "D": Spec((H,), "ones", dtype=torch.float32),
-        "norm_scale": Spec((d_in,), "ones", dtype=torch.float32),
-        "out_proj": Spec((d_in, d), fan_in=d_in),
+        "wz": Spec((d, d_in), fan_in=d, placement=(None, M)),
+        "wx": Spec((d, d_in), fan_in=d, placement=(None, M)),
+        "wB": Spec((d, s.d_state), fan_in=d, placement=(None, None)),
+        "wC": Spec((d, s.d_state), fan_in=d, placement=(None, None)),
+        "wdt": Spec((d, H), fan_in=d, placement=(None, M)),
+        "conv_w": Spec((d_in, s.d_conv), fan_in=s.d_conv,
+                       placement=(M, None)),
+        "conv_b": Spec((d_in,), "zeros", placement=(M,)),
+        "convB_w": Spec((s.d_state, s.d_conv), fan_in=s.d_conv,
+                        placement=(None, None)),
+        "convB_b": Spec((s.d_state,), "zeros", placement=(None,)),
+        "convC_w": Spec((s.d_state, s.d_conv), fan_in=s.d_conv,
+                        placement=(None, None)),
+        "convC_b": Spec((s.d_state,), "zeros", placement=(None,)),
+        "dt_bias": Spec((H,), "ssm_dt_bias", dtype=torch.float32,
+                        placement=(M,)),
+        "A_log": Spec((H,), "ssm_a_log", dtype=torch.float32,
+                      placement=(M,)),
+        "D": Spec((H,), "ones", dtype=torch.float32, placement=(M,)),
+        "norm_scale": Spec((d_in,), "ones", dtype=torch.float32,
+                           placement=(M,)),
+        "out_proj": Spec((d_in, d), fan_in=d_in, placement=(M, None)),
     }
 
 
@@ -296,6 +353,8 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg: ModelConfig):
 def apply_mamba2_with_state(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B,S,d) -> (out (B,S,d), decode state: the three conv tails and
     the final SSD state)."""
+    if sharded.is_dtensor(x):
+        return sharded.apply_ssm(apply_mamba2_with_state, p, x, cfg)
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     H = d_in // s.head_dim
@@ -327,6 +386,8 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, dtype, device):
 def apply_mamba2_decode(p: dict, x_t: torch.Tensor, state: dict,
                         cfg: ModelConfig):
     """x_t: (B,1,d). -> (y_t (B,1,d), new state)."""
+    if sharded.is_dtensor(x_t):
+        return sharded.apply_ssm(apply_mamba2_decode, p, x_t, cfg, state)
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     H = d_in // s.head_dim

@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 from repro_torch.models.layers import unembed
 from repro_torch.models.model import (forward_decode, forward_prefill,
                                       forward_train)
@@ -28,6 +29,8 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 def _xent_chunk(embed_params, hs, ys):
+    if sharded.is_dtensor(hs):        # the dry run's sharded model
+        return sharded.xent_chunk(embed_params, hs, ys)
     logits = unembed(embed_params, hs).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, ys.clamp(min=0).long()[..., None])[..., 0]

@@ -214,3 +214,29 @@ def test_phases_20_and_21_on_the_cpu():
     vl = cs.internvl_phase(get_config("internvl2-76b").reduced(), batch=2,
                            prompt_len=16, max_new=3, device="cpu")
     assert len(vl["ids"]) == 3
+
+
+def test_phase_22_on_the_cpu():
+    """Phase 22 (c): the three configs at reduced size, the CPU in the
+    card's place (CPU against CPU: ids equal, logits equal)."""
+    out = cs.llm_card_vs_cpu("cpu")
+    assert set(out) == set(cs.LLM_ARCHS)
+    for row in out.values():
+        assert row["card_vs_cpu_max_abs_err"] == 0.0
+
+
+def test_phase_23_on_the_cpu(tmp_path):
+    """Phase 23 as on the card (it needs none): the three decode_32k dry
+    runs on 256 ranks, their argument bytes the JAX package's, and the
+    one-rank count, here of a 2-layer stablelm-12b prefill at batch 2 x
+    256 beside a stand-in card reading."""
+    procs = cs.start_llm_dryruns(tmp_path)
+    procs["one_rank"].communicate(timeout=300)
+    cs.llm_count(str(tmp_path / "one_rank.json"), batch=2, seq=256)
+    out = cs.finish_llm_dryruns(procs, tmp_path, card_gb=1.0)
+    for arch in cs.LLM_ARCHS:
+        assert out[arch]["flops_vs_jax"] > 0
+        assert out[arch]["collective_vs_jax"] > 0
+    one = out["one_rank_prefill"]
+    assert one["batch"] == 2 and one["card_max_memory_allocated_gb"] == 1.0
+    assert one["total_bytes"] > one["argument_bytes"] > 0

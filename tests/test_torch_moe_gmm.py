@@ -145,7 +145,16 @@ def test_persistent_walk_with_sizes_off_the_row_count(total):
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
+    """The kernel's wrapper takes CUDA tensors alone; the entry point
+    takes meta tensors, the operator counter's dry run: the output's
+    shape, 2 d f flops a row charged."""
+    from repro_torch.kernels.moe_gmm import grouped_matmul_cuda
+    from repro_torch.launch import op_cost
     x = torch.empty((4, 8), device="meta")
     w = torch.empty((2, 8, 8), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        grouped_matmul(x, w, torch.tensor([2, 2], device="meta"))
+    sizes = torch.tensor([2, 2], device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_matmul_cuda(x, w, sizes)
+    cost = op_cost.measure(grouped_matmul, x, w, sizes)
+    assert cost.matmul_flops == 2 * 4 * 8 * 8
+    assert grouped_matmul(x, w, sizes).shape == (4, 8)

@@ -154,9 +154,10 @@ def test_params_from_numpy_checks_shapes(weights):
 
 def test_later_slices_raise():
     """What used to raise runs: the recursive-halving schedule (on CPU
-    tensors) and a vision frontend's caches and steps. What is not
-    ported yet is absent: the configs yi-34b, stablelm-12b and
-    llama4-maverick are not registered."""
+    tensors) and a vision frontend's caches and steps. The configs that
+    were absent until the last slice, yi-34b, stablelm-12b and
+    llama4-maverick, are registered: the port's registry holds the JAX
+    package's ten."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_caches
     from repro_torch.models.attention import blocked_attention
@@ -171,9 +172,11 @@ def test_later_slices_raise():
         assert callable(fn(vlm_like))
     assert init_caches(vlm_like, 1, 8, device="cpu")[0]["sub0"]["k"] \
         .shape == (4, 1, 8, 2, 32)
+    from repro.configs import ALL_ARCHS as J_ALL_ARCHS
+    from repro_torch.configs import ALL_ARCHS
     for name in ("yi-34b", "stablelm-12b", "llama4-maverick-400b-a17b"):
-        with pytest.raises(KeyError):
-            get_config(name)
+        assert get_config(name).name == name
+    assert ALL_ARCHS == J_ALL_ARCHS
 
 
 def test_params_from_numpy_carries_bfloat16():
