@@ -130,6 +130,17 @@ def default_engine_config(vert: VertexRel, program: VertexProgram,
                         axis_name=axis_name)
 
 
+def cuda_allocator(device) -> Optional[Callable]:
+    """For ``obs.memwatch`` (which imports no torch): a callable that
+    reads the CUDA caching allocator of ``device``, (bytes in use, peak
+    bytes), or None on any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return lambda: (torch.cuda.memory_allocated(device),
+                    torch.cuda.max_memory_allocated(device))
+
+
 def init_vertex_values(vert: VertexRel, program: VertexProgram,
                        gs: GlobalState) -> VertexRel:
     value = program.init_value(vert.vid, out_degrees(vert), gs)
@@ -232,9 +243,6 @@ def run_host(vert: VertexRel, program: VertexProgram,
     application errors forward. ``failure_injector(i, vert, msg, gs)``
     is called after each superstep (tests); the supervisor calls it
     again on every replay, so it must fire once."""
-    from repro_torch.runtime import faults
-    from repro_torch.runtime.checkpoint import save_checkpoint
-
     if recover:
         from repro_torch.runtime.checkpoint import latest_checkpoint
         from repro_torch.runtime.failure import supervised_run
@@ -262,54 +270,74 @@ def run_host(vert: VertexRel, program: VertexProgram,
                               max_retries=max_retries,
                               initial_resume=resume_from)
 
+    with trace.job():
+        return _run_job(vert, program, plan, max_supersteps, ec,
+                        checkpoint_every, checkpoint_dir, resume_from,
+                        resume_parts, on_superstep, failure_injector,
+                        auto_config, auto_space, kernel_impl)
+
+
+def _run_job(vert, program, plan, max_supersteps, ec, checkpoint_every,
+             checkpoint_dir, resume_from, resume_parts, on_superstep,
+             failure_injector, auto_config, auto_space, kernel_impl):
+    """One job of ``run_host`` (the call, or one attempt of a supervised
+    run), inside its ``job`` span."""
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.checkpoint import save_checkpoint
+
     t0 = time.time()
-    i0 = 0
-    if resume_from is not None:
-        from repro_torch.runtime.checkpoint import (load_checkpoint,
-                                                    repartition)
-        vert, msg, gs = load_checkpoint(resume_from,
-                                        device=vert.vid.device)
-        if resume_parts is not None \
-                and resume_parts != vert.num_partitions:
-            vert, msg = repartition(vert, msg, resume_parts)
-        i0 = int(gs.superstep)
-    plan, controller = _resolve_plan(vert, program, plan, adaptive=True,
-                                     kernel_impl=kernel_impl,
-                                     auto_config=auto_config,
-                                     auto_space=auto_space)
-    if explain.enabled():
-        # plan-audit ledger: bind the run context so each superstep's
-        # stats record can be re-priced under the in-effect plan, with
-        # the machine model of the graph's device
-        from repro_torch.planner.cost import machine_for
-        explain.attach(
-            program, vert=vert,
-            g=controller.g if controller is not None else None,
-            plan=plan,
-            machine=(controller.machine if controller is not None
-                     else machine_for(vert.vid.device)),
-            space_kw=auto_space)
-    if resume_from is None:
-        ec, vert, msg, gs = prepare_run(vert, program, plan, ec)
-    else:
-        ec = ec or default_engine_config(vert, program, plan)
-        if msg.capacity > ec.n_parts * ec.bucket_cap:
-            # the checkpointed inbox is wider than the derived config (it
-            # grew mid-run): adopt its capacity instead of truncating it
-            ec = dataclasses.replace(
-                ec, bucket_cap=-(-msg.capacity // ec.n_parts))
-        msg = _regrow_msgs(msg, ec)
-    initial_plan = plan
-    step = make_superstep(program, plan, ec)
-    n_live = (controller.g.n_vertices if controller is not None
-              else int((vert.vid >= 0).sum()))
-    metrics = MetricsRegistry()
-    coll = StatsCollector(n_partitions=vert.num_partitions,
-                          vertex_capacity=vert.capacity,
-                          msg_dims=program.msg_dims, n_vertices=n_live,
-                          metrics=metrics)
-    m_regrows = metrics.counter("host.regrows")
-    m_switches = metrics.counter("host.plan_switches")
+    # everything from the call's start to the loop: the plan, the initial
+    # state (init_vertex_values' out-degree scatter), the superstep's
+    # build and the collector's live-vertex readback
+    with trace.annotate("job.prepare", "prepare"):
+        i0 = 0
+        if resume_from is not None:
+            from repro_torch.runtime.checkpoint import (load_checkpoint,
+                                                        repartition)
+            vert, msg, gs = load_checkpoint(resume_from,
+                                            device=vert.vid.device)
+            if resume_parts is not None \
+                    and resume_parts != vert.num_partitions:
+                vert, msg = repartition(vert, msg, resume_parts)
+            i0 = int(gs.superstep)
+        plan, controller = _resolve_plan(vert, program, plan, adaptive=True,
+                                         kernel_impl=kernel_impl,
+                                         auto_config=auto_config,
+                                         auto_space=auto_space)
+        if explain.enabled():
+            # plan-audit ledger: bind the run context so each superstep's
+            # stats record can be re-priced under the in-effect plan, with
+            # the machine model of the graph's device
+            from repro_torch.planner.cost import machine_for
+            explain.attach(
+                program, vert=vert,
+                g=controller.g if controller is not None else None,
+                plan=plan,
+                machine=(controller.machine if controller is not None
+                         else machine_for(vert.vid.device)),
+                space_kw=auto_space)
+        if resume_from is None:
+            ec, vert, msg, gs = prepare_run(vert, program, plan, ec)
+        else:
+            ec = ec or default_engine_config(vert, program, plan)
+            if msg.capacity > ec.n_parts * ec.bucket_cap:
+                # the checkpointed inbox is wider than the derived config (it
+                # grew mid-run): adopt its capacity instead of truncating it
+                ec = dataclasses.replace(
+                    ec, bucket_cap=-(-msg.capacity // ec.n_parts))
+            msg = _regrow_msgs(msg, ec)
+        initial_plan = plan
+        step = make_superstep(program, plan, ec)
+        n_live = (controller.g.n_vertices if controller is not None
+                  else int((vert.vid >= 0).sum()))
+        metrics = MetricsRegistry()
+        coll = StatsCollector(n_partitions=vert.num_partitions,
+                              vertex_capacity=vert.capacity,
+                              msg_dims=program.msg_dims, n_vertices=n_live,
+                              metrics=metrics)
+        m_regrows = metrics.counter("host.regrows")
+        m_redo_s = metrics.counter("host.redo_s")
+        m_switches = metrics.counter("host.plan_switches")
     stats = []
     i = i0
     # a superstep built anew (the first, and after a regrow, a refit or a
@@ -321,111 +349,124 @@ def run_host(vert: VertexRel, program: VertexProgram,
         this_recompiled, recompiled = recompiled, False
         # the overflow readback is the superstep's device sync: the span
         # closes after it, so it times the superstep and not its enqueue
-        with trace.annotate("superstep", "compute"):
+        with trace.annotate("superstep", "compute", superstep=i) as span:
             vert2, msg2, gs2 = step(vert, msg, gs)
-            ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
-        if (ovf_delta > 0).any():
-            ec = grow_overflowed(ec, ovf_delta,
-                                 vertex_capacity=vert.capacity)
-            step = make_superstep(program, plan, ec)
-            msg = _regrow_msgs(msg, ec)
-            stats.append(coll.event(
-                i, "regrow", bucket_cap=ec.bucket_cap,
-                frontier_cap=ec.frontier_cap,
-                mutation_cap=ec.mutation_cap,
-                sources=np.flatnonzero(ovf_delta > 0).tolist()).as_dict())
-            m_regrows.inc()
-            trace.instant("regrow", "replan", superstep=i)
-            recompiled = True
-            if controller is not None:
-                controller.note_shape_change()
-            continue
-        vert, msg, gs = vert2, msg2, gs2
-        i += 1
-        rec = coll.record(i, active=int(gs.active_count),
-                          messages=int(gs.msg_count),
-                          wall_s=time.time() - ts,
-                          recompiled=this_recompiled)
-        stats.append(rec.as_dict())
-        if explain.enabled():
-            # audit the plan that EXECUTED this superstep (a switch
-            # below only affects the next one)
-            explain.superstep(rec, plan=plan, bucket_cap=ec.bucket_cap)
-        if memwatch.enabled():
-            memwatch.configure(ec=ec, Np=vert.capacity,
-                               Ep=vert.edge_src.shape[1],
-                               value_dims=program.value_dims,
-                               msg_dims=program.msg_dims)
-            memwatch.sample(i)
-        switched = False
-        if controller is not None and not bool(gs.halt):
-            # mid-run replanning: switch the physical plan when observed
-            # frontier density pushes another plan below the current one
-            with trace.span("replan", "replan"):
-                new_plan = controller.observe(rec,
-                                              bucket_cap=ec.bucket_cap)
-            if new_plan is not None:
-                from repro_torch.planner import migrate_msgs
-                msg = migrate_msgs(msg, plan, new_plan, ec.n_parts)
-                plan = new_plan
-                if plan.join == "left_outer":
-                    act = int(gs.active_count) // \
-                        max(vert.num_partitions, 1) + 1
-                    ec = dataclasses.replace(
-                        ec, frontier_cap=min(max(FRONTIER_FLOOR, act * 4),
-                                             vert.capacity + 8))
-                # dropping the sender combine needs room for uncombined
-                # sends: grow the buckets now instead of paying an
-                # overflow redo on the next superstep
-                need = default_engine_config(vert, program, plan)
-                if need.bucket_cap > ec.bucket_cap:
-                    ec = dataclasses.replace(ec,
-                                             bucket_cap=need.bucket_cap)
-                    msg = _regrow_msgs(msg, ec)
+            with trace.annotate("superstep.readback", "collect"):
+                ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
+            redo = bool((ovf_delta > 0).any())
+            if redo:
+                # a regrow's discarded attempt: its seconds up to the
+                # readback, which the redo's wall_s leaves out
+                attempt_s = time.time() - ts
+                span.tag(redo=True)
+        # the rest of the loop body: the regrow or the stats record and
+        # its readbacks, the refit, replan, checkpoint and callback
+        with trace.annotate("boundary", "commit"):
+            if redo:
+                ec = grow_overflowed(ec, ovf_delta,
+                                     vertex_capacity=vert.capacity)
                 step = make_superstep(program, plan, ec)
+                msg = _regrow_msgs(msg, ec)
                 stats.append(coll.event(
-                    i, "plan-switch", join=plan.join,
-                    groupby=plan.groupby, connector=plan.connector,
-                    sender_combine=plan.sender_combine,
-                    storage=plan.storage,
-                    frontier_cap=ec.frontier_cap).as_dict())
-                m_switches.inc()
-                recompiled = switched = True
-                controller.note_shape_change()
-        # adaptive frontier refit (left-outer plan): when the live set
-        # collapses, shrink the frontier so each superstep pays only
-        # O(|frontier|)
-        if plan.join == "left_outer" and not switched:
-            act = int(gs.active_count) // max(vert.num_partitions, 1) + 1
-            if act * 4 < ec.frontier_cap and ec.frontier_cap > \
-                    FRONTIER_FLOOR:
-                ec = dataclasses.replace(
-                    ec, frontier_cap=max(FRONTIER_FLOOR, act * 2))
-                step = make_superstep(program, plan, ec)
-                stats.append(coll.event(
-                    i, "frontier-refit",
-                    frontier_cap=ec.frontier_cap).as_dict())
+                    i, "regrow", bucket_cap=ec.bucket_cap,
+                    frontier_cap=ec.frontier_cap,
+                    mutation_cap=ec.mutation_cap,
+                    sources=np.flatnonzero(ovf_delta > 0).tolist(),
+                    attempt_s=attempt_s).as_dict())
+                m_regrows.inc()
+                m_redo_s.inc(attempt_s)
+                trace.instant("regrow", "replan", superstep=i)
                 recompiled = True
                 if controller is not None:
                     controller.note_shape_change()
-        if controller is not None and not bool(gs.halt):
-            # periodic cost-model re-calibration (opt-in): refit the
-            # analytic constants after the shapes changed, at most once
-            # per AdaptiveConfig.recalibrate_every supersteps
-            recal = controller.maybe_recalibrate(program, i)
-            if recal is not None:
-                stats.append(coll.event(i, "recalibrate",
-                                        **recal).as_dict())
-        if failure_injector is not None:
-            failure_injector(i, vert, msg, gs)
-        if checkpoint_every and i % checkpoint_every == 0 \
-                and checkpoint_dir:
-            with trace.span("checkpoint", "checkpoint"):
-                save_checkpoint(checkpoint_dir, i, vert, msg, gs)
-        if on_superstep is not None:
-            on_superstep(i, vert, msg, gs, rec.as_dict())
-        if bool(gs.halt):
-            break
+                continue
+            vert, msg, gs = vert2, msg2, gs2
+            i += 1
+            rec = coll.record(i, active=int(gs.active_count),
+                              messages=int(gs.msg_count),
+                              wall_s=time.time() - ts,
+                              recompiled=this_recompiled)
+            stats.append(rec.as_dict())
+            if explain.enabled():
+                # audit the plan that EXECUTED this superstep (a switch
+                # below only affects the next one)
+                explain.superstep(rec, plan=plan, bucket_cap=ec.bucket_cap)
+            if memwatch.enabled():
+                memwatch.configure(ec=ec, Np=vert.capacity,
+                                   Ep=vert.edge_src.shape[1],
+                                   value_dims=program.value_dims,
+                                   msg_dims=program.msg_dims,
+                                   allocator=cuda_allocator(vert.vid.device))
+                memwatch.sample(i)
+            switched = False
+            if controller is not None and not bool(gs.halt):
+                # mid-run replanning: switch the physical plan when observed
+                # frontier density pushes another plan below the current one
+                with trace.span("replan", "replan"):
+                    new_plan = controller.observe(rec,
+                                                  bucket_cap=ec.bucket_cap)
+                if new_plan is not None:
+                    from repro_torch.planner import migrate_msgs
+                    msg = migrate_msgs(msg, plan, new_plan, ec.n_parts)
+                    plan = new_plan
+                    if plan.join == "left_outer":
+                        act = int(gs.active_count) // \
+                            max(vert.num_partitions, 1) + 1
+                        ec = dataclasses.replace(
+                            ec, frontier_cap=min(max(FRONTIER_FLOOR, act * 4),
+                                                 vert.capacity + 8))
+                    # dropping the sender combine needs room for uncombined
+                    # sends: grow the buckets now instead of paying an
+                    # overflow redo on the next superstep
+                    need = default_engine_config(vert, program, plan)
+                    if need.bucket_cap > ec.bucket_cap:
+                        ec = dataclasses.replace(ec,
+                                                 bucket_cap=need.bucket_cap)
+                        msg = _regrow_msgs(msg, ec)
+                    step = make_superstep(program, plan, ec)
+                    stats.append(coll.event(
+                        i, "plan-switch", join=plan.join,
+                        groupby=plan.groupby, connector=plan.connector,
+                        sender_combine=plan.sender_combine,
+                        storage=plan.storage,
+                        frontier_cap=ec.frontier_cap).as_dict())
+                    m_switches.inc()
+                    recompiled = switched = True
+                    controller.note_shape_change()
+            # adaptive frontier refit (left-outer plan): when the live set
+            # collapses, shrink the frontier so each superstep pays only
+            # O(|frontier|)
+            if plan.join == "left_outer" and not switched:
+                act = int(gs.active_count) // max(vert.num_partitions, 1) + 1
+                if act * 4 < ec.frontier_cap and ec.frontier_cap > \
+                        FRONTIER_FLOOR:
+                    ec = dataclasses.replace(
+                        ec, frontier_cap=max(FRONTIER_FLOOR, act * 2))
+                    step = make_superstep(program, plan, ec)
+                    stats.append(coll.event(
+                        i, "frontier-refit",
+                        frontier_cap=ec.frontier_cap).as_dict())
+                    recompiled = True
+                    if controller is not None:
+                        controller.note_shape_change()
+            if controller is not None and not bool(gs.halt):
+                # periodic cost-model re-calibration (opt-in): refit the
+                # analytic constants after the shapes changed, at most once
+                # per AdaptiveConfig.recalibrate_every supersteps
+                recal = controller.maybe_recalibrate(program, i)
+                if recal is not None:
+                    stats.append(coll.event(i, "recalibrate",
+                                            **recal).as_dict())
+            if failure_injector is not None:
+                failure_injector(i, vert, msg, gs)
+            if checkpoint_every and i % checkpoint_every == 0 \
+                    and checkpoint_dir:
+                with trace.span("checkpoint", "checkpoint"):
+                    save_checkpoint(checkpoint_dir, i, vert, msg, gs)
+            if on_superstep is not None:
+                on_superstep(i, vert, msg, gs, rec.as_dict())
+            if bool(gs.halt):
+                break
     return RunResult(vertex=vert, gs=gs, supersteps=i, stats=stats,
                      wall_s=time.time() - t0, plan=plan,
                      initial_plan=initial_plan)

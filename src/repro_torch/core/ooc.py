@@ -99,7 +99,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.driver import (PlanArg, RunResult, _resolve_plan,
-                                     default_engine_config,
+                                     cuda_allocator, default_engine_config,
                                      grow_overflowed, init_vertex_values)
 from repro_torch.core.plan import FRONTIER_FLOOR, STORAGES, PhysicalPlan
 from repro_torch.core.program import VertexProgram
@@ -649,7 +649,8 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
                 ec=ec, Np=Np, Ep=shape_vert.edge_src.shape[1],
                 value_dims=program.value_dims,
                 msg_dims=program.msg_dims,
-                budget_bytes=memory_budget_bytes)
+                budget_bytes=memory_budget_bytes,
+                allocator=cuda_allocator(device))
         step = make_superstep(program, plan, ec)
         seen_widths = set()   # inbox widths this `step` has already run
         window = max(int(prefetch_depth), 1) if stream else 1

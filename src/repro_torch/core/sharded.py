@@ -80,7 +80,8 @@ import torch
 from repro_torch.core import connector
 from repro_torch.core.connector import ShardAxis
 from repro_torch.core.driver import (PlanArg, RunResult, _regrow_msgs,
-                                     _resolve_plan, default_engine_config,
+                                     _resolve_plan, cuda_allocator,
+                                     default_engine_config,
                                      grow_overflowed, init_vertex_values)
 from repro_torch.core.plan import FRONTIER_FLOOR, PhysicalPlan
 from repro_torch.core.relations import (GlobalState, MsgRel, VertexRel,
@@ -561,7 +562,8 @@ def _inmem_rank(job, ax: ShardAxis, og, dev, emit) -> dict:
                        machine=job["machine"], space_kw=job["auto_space"])
     if memwatch.enabled() and ax.rank == 0:
         memwatch.configure(ec=ec, Np=Np, Ep=Ep,
-                           value_dims=program.value_dims, msg_dims=D)
+                           value_dims=program.value_dims, msg_dims=D,
+                           allocator=cuda_allocator(dev))
 
     step = make_superstep(program, plan, ec)
     if rgs is not None:
@@ -739,7 +741,8 @@ def _ooc_rank(job, ax: ShardAxis, og, dev, emit) -> dict:
     if memwatch.enabled() and ax.rank == 0:
         memwatch.configure(ec=ec, Np=Np, Ep=Ep,
                            value_dims=program.value_dims, msg_dims=D,
-                           budget_bytes=budget * N if budget else None)
+                           budget_bytes=budget * N if budget else None,
+                           allocator=cuda_allocator(dev))
     metrics = MetricsRegistry()
     coll = StatsCollector(n_partitions=P, vertex_capacity=Np, msg_dims=D,
                           n_vertices=job["n_live"], metrics=metrics)

@@ -42,6 +42,7 @@ from repro_torch.core.plan import PhysicalPlan
 from repro_torch.core.program import ComputeOut, VertexProgram
 from repro_torch.core.relations import GlobalState, MsgRel, VertexRel
 from repro_torch.kernels import backend as kbackend
+from repro_torch.obs import trace
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -343,65 +344,77 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         P, Np = vert.vid.shape
         dev = vert.vid.device
         i32 = lambda x: x.to(torch.int32)
+        # each stage is a span (a profiler range under annotations); no
+        # kwargs, so with tracing off a span costs one global check
         # 1-2. receiver group-by + join + select (D1)
-        combined, has_msg = receiver_groupby(msg, Np)
-        if program.mutates:
-            vert = resurrect(vert, has_msg, part0)
-        out, active, frontier = run_compute(vert, combined, has_msg, gs)
-        # 3. vertex updates (D2)
-        value, halt, gate, agg = apply_updates(vert, out, active, frontier)
+        with trace.annotate("superstep.groupby", "compute"):
+            combined, has_msg = receiver_groupby(msg, Np)
+            if program.mutates:
+                vert = resurrect(vert, has_msg, part0)
+        with trace.annotate("superstep.compute", "compute"):
+            out, active, frontier = run_compute(vert, combined, has_msg,
+                                                gs)
+            # 3. vertex updates (D2)
+            value, halt, gate, agg = apply_updates(vert, out, active,
+                                                   frontier)
         # 4. message generation + sender combine + exchange (D3/D7)
-        dst, payload, valid, ovf_edges = gen_messages(vert, value, gate, gs)
+        with trace.annotate("superstep.gather", "compute"):
+            dst, payload, valid, ovf_edges = gen_messages(vert, value,
+                                                          gate, gs)
         presorted = False
         ovf_pack = torch.zeros((), dtype=torch.int32, device=dev)
         if plan.sender_combine:
-            dst, payload, valid = sender_combine(dst, payload, valid)
-            presorted = True      # the sorted fold leaves dst ascending
-            capc = n_parts * ec.bucket_cap
-            if capc < dst.shape[1]:
-                dst, payload, valid, ovf_pack = compact_combined(
-                    dst, payload, valid, capc)
-        r_dst, r_pay, r_val, ovf = route(
-            dst, payload, valid, ec.bucket_cap, Np, presorted,
-            collect=ec.ooc_collect or ec.exchange_apart)
+            with trace.annotate("superstep.combine", "compute"):
+                dst, payload, valid = sender_combine(dst, payload, valid)
+                presorted = True  # the sorted fold leaves dst ascending
+                capc = n_parts * ec.bucket_cap
+                if capc < dst.shape[1]:
+                    dst, payload, valid, ovf_pack = compact_combined(
+                        dst, payload, valid, capc)
+        with trace.annotate("superstep.route", "compute"):
+            r_dst, r_pay, r_val, ovf = route(
+                dst, payload, valid, ec.bucket_cap, Np, presorted,
+                collect=ec.ooc_collect or ec.exchange_apart)
         # 5. mutations (D6), after the sends: gen_messages read the edges
         # as they were, so a vertex that deletes itself still sends
         m_ovf = torch.zeros((), dtype=torch.int32, device=dev)
         mut_buckets = None
         vid, edge_dst, edge_val = vert.vid, vert.edge_dst, vert.edge_val
         if out.has_mutations():
-            (vid, value, halt, edge_dst, edge_val, m_ovf,
-             mut_buckets) = apply_mutations(vert, value, halt, out)
+            with trace.annotate("superstep.mutate", "compute"):
+                (vid, value, halt, edge_dst, edge_val, m_ovf,
+                 mut_buckets) = apply_mutations(vert, value, halt, out)
         # 6. global state. Overflow is counted PER SOURCE (bucket /
         # frontier / mutation / edge) so the driver doubles only the
         # capacity that overflowed.
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        tallies = torch.stack([
-            i32(r_val.sum()),
-            i32(ovf) + i32(ovf_pack),
-            i32(frontier[2].sum()) if frontier is not None else zero,
-            i32(m_ovf),
-            i32(ovf_edges),
-            i32(active.sum())])
-        not_all_halted = i32(~(halt | (vid < 0)).all()).reshape(1)
-        if agg is not None:
-            contrib, mask = agg
-            agg_val = torch.where(mask[..., None], contrib, 0.0) \
-                .reshape(-1, program.agg_dims).sum(0)
-        else:
-            agg_val = gs.aggregate
-        if axis is not None:
-            # every rank ends the superstep with the same global state:
-            # SUM of the counts and the overflow vector, MAX of the
-            # "not all halted" votes, SUM of the aggregate partials (the
-            # ranks' adding order is not run_host's: a float aggregate
-            # agrees to rounding)
-            dist.all_reduce(tallies, group=axis.group)
-            dist.all_reduce(not_all_halted, op=dist.ReduceOp.MAX,
-                            group=axis.group)
+        with trace.annotate("superstep.reduce", "compute"):
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            tallies = torch.stack([
+                i32(r_val.sum()),
+                i32(ovf) + i32(ovf_pack),
+                i32(frontier[2].sum()) if frontier is not None else zero,
+                i32(m_ovf),
+                i32(ovf_edges),
+                i32(active.sum())])
+            not_all_halted = i32(~(halt | (vid < 0)).all()).reshape(1)
             if agg is not None:
-                agg_val = agg_val.to(torch.float32).contiguous()
-                dist.all_reduce(agg_val, group=axis.group)
+                contrib, mask = agg
+                agg_val = torch.where(mask[..., None], contrib, 0.0) \
+                    .reshape(-1, program.agg_dims).sum(0)
+            else:
+                agg_val = gs.aggregate
+            if axis is not None:
+                # every rank ends the superstep with the same global
+                # state: SUM of the counts and the overflow vector, MAX
+                # of the "not all halted" votes, SUM of the aggregate
+                # partials (the ranks' adding order is not run_host's: a
+                # float aggregate agrees to rounding)
+                dist.all_reduce(tallies, group=axis.group)
+                dist.all_reduce(not_all_halted, op=dist.ReduceOp.MAX,
+                                group=axis.group)
+                if agg is not None:
+                    agg_val = agg_val.to(torch.float32).contiguous()
+                    dist.all_reduce(agg_val, group=axis.group)
         msg_count = tallies[0]
         overflow = tallies[1:5]
         active_count = tallies[5]

@@ -9,10 +9,16 @@ worker threads render as parallel timelines and the readiness-stall gap
 between "inbox ready" and "first dispatch" is visible as a span on the
 main track.
 
-Event mapping (all timestamps microseconds relative to the earliest
-event):
+Event mapping (timestamps in microseconds after the file's
+``baseTimeNanoseconds``, an epoch time in ns that ``torch.profiler``'s
+export also writes: the start of the ~91-day interval, 7,889,238 s long,
+that holds the recording. A ``torch.profiler`` trace of the same run
+carries the same base, so its events and these lie on one axis):
 
-* span   → ``{"ph": "X", "name", "cat", "pid", "tid", "ts", "dur", "args"}``
+* span   → ``{"ph": "X", "name", "cat", "pid", "tid", "ts", "dur", "args"}``;
+  ``args`` holds the span's own ``span`` id, its ``parent`` (absent at a
+  thread's root) and its ``job`` (absent outside every job) beside the
+  caller's arguments
 * instant→ ``{"ph": "i", "s": "t", ...}``
 * counter→ ``{"ph": "C", "args": {"value": v}}`` (a Perfetto area track)
 
@@ -29,6 +35,15 @@ from typing import Optional
 from repro_torch.obs import trace as _trace
 
 _PID = 1  # single-process engine: one trace process
+# libkineto's ChromeTraceBaseTime: epoch seconds floored to this interval
+BASE_INTERVAL_S = 7_889_238
+
+
+def base_time_ns(t_ns: int) -> int:
+    """The ``baseTimeNanoseconds`` of a trace whose earliest event is at
+    ``t_ns`` (epoch ns): ``torch.profiler``'s floor."""
+    step = BASE_INTERVAL_S * 1_000_000_000
+    return (int(t_ns) // step) * step
 
 
 def chrome_trace(tracer: Optional[_trace.Tracer] = None) -> dict:
@@ -44,31 +59,37 @@ def chrome_trace(tracer: Optional[_trace.Tracer] = None) -> dict:
                 t0 = min(t0, ev[3])
             else:
                 t0 = min(t0, ev[2])
+    base = base_time_ns(t0)
+    us = lambda t: (t - base) / 1000.0
     out = []
     for tid, name, events in bufs:
         out.append({"ph": "M", "name": "thread_name", "pid": _PID,
                     "tid": tid, "args": {"name": name}})
         for ev in events:
             if ev[0] == "X":
-                _, nm, cat, ts, dur, args = ev
-                e = {"ph": "X", "name": nm, "cat": cat, "pid": _PID,
-                     "tid": tid, "ts": (ts - t0) * 1e6, "dur": dur * 1e6}
-                if args:
-                    e["args"] = args
-                out.append(e)
+                _, nm, cat, ts, dur, args, sid, parent, job = ev
+                a = {**(args or {}), "span": sid}
+                if parent:
+                    a["parent"] = parent
+                if job:
+                    a["job"] = job
+                out.append({"ph": "X", "name": nm, "cat": cat, "pid": _PID,
+                            "tid": tid, "ts": us(ts), "dur": dur / 1000.0,
+                            "args": a})
             elif ev[0] == "i":
                 _, nm, cat, ts, args = ev
                 e = {"ph": "i", "s": "t", "name": nm, "cat": cat,
-                     "pid": _PID, "tid": tid, "ts": (ts - t0) * 1e6}
+                     "pid": _PID, "tid": tid, "ts": us(ts)}
                 if args:
                     e["args"] = args
                 out.append(e)
             else:
                 _, nm, ts, value = ev
                 out.append({"ph": "C", "name": nm, "pid": _PID,
-                            "tid": tid, "ts": (ts - t0) * 1e6,
+                            "tid": tid, "ts": us(ts),
                             "args": {"value": value}})
-    return {"traceEvents": out, "displayTimeUnit": "ms"}
+    return {"traceEvents": out, "displayTimeUnit": "ms",
+            "baseTimeNanoseconds": base}
 
 
 def write_chrome_trace(path: str,

@@ -5,7 +5,13 @@ Wall time is a late signal of memory pressure — a tier fills long before
 the run slows (the out-of-core literature's consistent finding). This
 module samples all three storage tiers at superstep boundaries:
 
-* **HBM** — the device working set is static per plan: relation
+* **HBM** — on a CUDA device, what the caching allocator holds
+  (``torch.cuda.memory_allocated``) and its peak
+  (``max_memory_allocated``), read through the callable the driver
+  binds (this module imports no torch): the shape estimate below reads
+  3.6-4.5x under it on an H100, since it leaves out every temporary of
+  the superstep. On the CPU (and on meta tensors) the estimate: the
+  device working set is static per plan: relation
   capacities from ``EngineConfig`` (``bucket_cap`` / ``frontier_cap`` /
   ``mutation_cap``) times the vertex/edge/message shapes, times the
   partitions resident at once (the OOC stream keeps
@@ -48,15 +54,21 @@ class MemWatch:
         self.peaks: dict = {}
         self._hbm_ctx: Optional[dict] = None
         self._budget: Optional[int] = None
+        self._allocator = None      # () -> (bytes in use, peak bytes)
 
     # ---- run context -------------------------------------------------
     def configure(self, *, ec=None, Np: int = 0, Ep: int = 0,
                   value_dims: int = 1, msg_dims: int = 1,
                   budget_bytes: Optional[int] = None,
-                  n_workers: int = 1):
+                  n_workers: int = 1, allocator=None):
         """Bind the shapes the HBM estimate needs (``ec`` is the
         resolved ``EngineConfig``) and the DRAM budget for the OOM
-        gauge. Without it, samples carry only what the stores report."""
+        gauge. Without it, samples carry only what the stores report.
+        ``allocator`` (a CUDA device's: ``driver.cuda_allocator``)
+        returns the device allocator's (bytes in use, peak bytes), which
+        the HBM sample then reads in place of the estimate."""
+        if allocator is not None:
+            self._allocator = allocator
         if ec is not None:
             self._hbm_ctx = {
                 "n_parts": int(ec.n_parts),
@@ -96,6 +108,15 @@ class MemWatch:
                 "frontier_bytes": frontier, "mutation_bytes": mutation,
                 "resident_parts": P}
 
+    def hbm_allocated(self) -> Optional[dict]:
+        """The device allocator's bytes in use now and at their peak, or
+        None when no allocator was configured."""
+        if self._allocator is None:
+            return None
+        used, peak = self._allocator()
+        return {"total_bytes": int(used), "peak_bytes": int(peak),
+                "source": "allocator"}
+
     # ---- per-superstep sample ----------------------------------------
     def sample(self, superstep: int, *, store=None, stores=None,
                resident_parts: Optional[int] = None) -> dict:
@@ -103,10 +124,15 @@ class MemWatch:
         driver's ``TieredStore`` (or ``stores`` the sharded per-worker
         list); in-memory runs pass neither and get an HBM-only sample."""
         s = {"superstep": int(superstep)}
-        hbm = self.hbm_estimate(resident_parts)
+        hbm = self.hbm_allocated()
         if hbm is not None:
             s["hbm"] = hbm
-            self._peak("hbm_bytes", hbm["total_bytes"])
+            self._peak("hbm_bytes", hbm["peak_bytes"])
+        else:
+            hbm = self.hbm_estimate(resident_parts)
+            if hbm is not None:
+                s["hbm"] = hbm
+                self._peak("hbm_bytes", hbm["total_bytes"])
         occs = []
         if store is not None:
             occs.append(store.occupancy())

@@ -24,9 +24,20 @@ Design constraints:
   plain ``list.append``. Export snapshots the buffers concurrently with
   recording (``Tracer.drain``).
 * **Device bridging is optional.** ``start(torch_annotations=True)``
-  makes ``annotate`` also enter a ``torch.profiler.record_function``, so
-  spans line up with device activity when the run is profiled with
-  ``torch.profiler``.
+  makes ``annotate`` (and ``job``) also enter a
+  ``torch.profiler.record_function``, so spans line up with device
+  activity when the run is profiled with ``torch.profiler``. A span adds
+  no device sync and no tensor: host spans time the enqueue, device time
+  comes from the profiler.
+* **One clock with the profiler.** Timestamps are integer nanoseconds of
+  ``time.time_ns()``, the epoch clock ``torch.profiler`` stamps its host
+  events with; ``obs.export`` writes them against the same
+  ``baseTimeNanoseconds`` convention, so both traces of a run overlay.
+* **Spans form trees.** Each span records its own id, its parent (the
+  enclosing live span on its thread, 0 at a thread's root) and the job
+  it belongs to: ``job()`` opens a job's root span and makes its id the
+  process's current job until it closes, so spans on I/O-engine worker
+  threads carry the job too.
 
 Span categories (one per pipeline leg; ``CATEGORIES``): ``dispatch``,
 ``prepare``, ``compute``, ``collect``, ``commit``, ``fault``,
@@ -37,6 +48,7 @@ axis is calibrated against).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Optional
@@ -46,8 +58,11 @@ CATEGORIES = ("dispatch", "prepare", "compute", "collect", "commit",
               "fault", "readahead", "writeback", "checkpoint", "replan",
               "exchange", "retry", "degrade")
 
-# event tuples stored in the per-thread buffers:
-#   ("X", name, cat, t0, dur, args)   complete span (seconds, wall clock)
+# event tuples stored in the per-thread buffers (times in integer
+# nanoseconds of time.time_ns()):
+#   ("X", name, cat, t0, dur, args, span_id, parent_id, job)
+#                                     complete span (parent 0: a root;
+#                                     job 0: outside every job)
 #   ("i", name, cat, t, args)         instant event
 #   ("C", name, t, value)             counter sample
 
@@ -63,15 +78,21 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def tag(self, **args):
+        pass
+
 
 _NULL = _NullSpan()
 
 
 class _Span:
-    """A live span: appends one ("X", ...) event to its thread's buffer
-    on exit. Created only when a tracer is active."""
+    """A live span: pushes its id on its thread's stack on enter, and on
+    exit pops it and appends one ("X", ...) event to its thread's buffer.
+    Created only when a tracer is active; entered and left by ``with``,
+    so the spans of a thread nest."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_id",
+                 "_parent", "_job")
 
     def __init__(self, tracer, name, cat, args):
         self._tracer = tracer
@@ -80,20 +101,34 @@ class _Span:
         self._args = args
 
     def __enter__(self):
-        self._t0 = time.time()
+        t = self._tracer
+        stack = t._stack()
+        self._parent = stack[-1] if stack else 0
+        self._id = next(t._ids)
+        self._job = t.job
+        stack.append(self._id)
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.time()
-        self._tracer._buf().append(
+        t1 = time.time_ns()
+        t = self._tracer
+        t._stack().pop()                 # spans nest: ``with`` only
+        t._buf().append(
             ("X", self._name, self._cat, self._t0, t1 - self._t0,
-             self._args))
+             self._args, self._id, self._parent, self._job))
         return False
+
+    def tag(self, **args):
+        """Add arguments to the span before it closes (a superstep found
+        to be a redo only at its readback)."""
+        self._args = {**(self._args or {}), **args}
 
 
 class _Annotated:
     """A span combined with a ``torch.profiler.record_function`` (device
-    bridging): both contexts enter/exit together."""
+    bridging). The profiler's range opens first and closes last, so the
+    span lies inside it on the shared clock."""
 
     __slots__ = ("_span", "_ann")
 
@@ -102,23 +137,56 @@ class _Annotated:
         self._ann = ann
 
     def __enter__(self):
-        self._span.__enter__()
         self._ann.__enter__()
+        self._span.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self._ann.__exit__(*exc)
-        return self._span.__exit__(*exc)
+        try:
+            return self._span.__exit__(*exc)
+        finally:
+            self._ann.__exit__(*exc)
+
+    def tag(self, **args):
+        self._span.tag(**args)
+
+
+class _Job:
+    """A job's root span: takes the tracer's next job id and makes it the
+    process's current job while the span is open."""
+
+    __slots__ = ("_tracer", "_span", "_prev")
+
+    def __init__(self, tracer, span):
+        self._tracer = tracer
+        self._span = span
+
+    def __enter__(self):
+        t = self._tracer
+        self._prev = t.job
+        t.job = next(t._job_ids)
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            return self._span.__exit__(*exc)
+        finally:
+            self._tracer.job = self._prev
 
 
 class Tracer:
-    """Per-thread span buffers + the clock origin for one recording."""
+    """Per-thread span buffers and span stacks, the span and job ids,
+    and the clock origin (ns) for one recording."""
 
     def __init__(self, *, torch_annotations: bool = False):
         self._mu = threading.Lock()
         self._bufs: list = []            # [(tid, thread_name, events)]
         self._local = threading.local()
-        self.t_origin = time.time()
+        self._ids = itertools.count(1)
+        self._job_ids = itertools.count(1)
+        self.job = 0                     # the current job's id, 0: none
+        self.t_origin = time.time_ns()
         self.annotation = None
         if torch_annotations:
             from torch.profiler import record_function
@@ -134,21 +202,32 @@ class Tracer:
             self._local.buf = b
         return b
 
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
     # ---- recording ---------------------------------------------------
     def span(self, name: str, cat: str, args: Optional[dict] = None):
         return _Span(self, name, cat, args)
 
     def complete(self, name: str, cat: str, t0: float, t1: float,
                  args: Optional[dict] = None):
-        """Record a span with explicit wall-clock endpoints (for
-        intervals measured elsewhere, e.g. the readiness stall)."""
-        self._buf().append(("X", name, cat, t0, max(t1 - t0, 0.0), args))
+        """Record a span with explicit endpoints in seconds of
+        ``time.time()`` (for intervals measured elsewhere, e.g. the
+        readiness stall); its parent is the thread's live span."""
+        stack = self._stack()
+        a, b = round(t0 * 1e9), round(t1 * 1e9)
+        self._buf().append(("X", name, cat, a, max(b - a, 0), args,
+                            next(self._ids), stack[-1] if stack else 0,
+                            self.job))
 
     def instant(self, name: str, cat: str, args: Optional[dict] = None):
-        self._buf().append(("i", name, cat, time.time(), args))
+        self._buf().append(("i", name, cat, time.time_ns(), args))
 
     def counter(self, name: str, value):
-        self._buf().append(("C", name, time.time(), value))
+        self._buf().append(("C", name, time.time_ns(), value))
 
     # ---- export surface ----------------------------------------------
     def drain(self) -> list:
@@ -221,9 +300,22 @@ def annotate(name: str, cat: str = "compute", **args):
     return s
 
 
+def job():
+    """The root span of one job, ``job`` (annotated like ``annotate``):
+    the tracer assigns it the next job id, which every span made while it
+    is open carries, on any thread. The cached no-op when disabled."""
+    t = _tracer
+    if t is None:
+        return _NULL
+    s = t.span("job", "compute", None)
+    if t.annotation is not None:
+        s = _Annotated(s, t.annotation("job"))
+    return _Job(t, s)
+
+
 def complete(name: str, cat: str, t0: float, t1: float, **args):
-    """Record a span with explicit wall-clock endpoints (no-op when
-    disabled)."""
+    """Record a span with explicit endpoints in seconds of
+    ``time.time()`` (no-op when disabled)."""
     t = _tracer
     if t is None:
         return

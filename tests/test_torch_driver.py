@@ -151,3 +151,26 @@ def test_entry_points_refuse_later_slices():
         T.run_host(vert, mk_t(), T.SPARSE_PLAN,
                    ec=T.EngineConfig(n_parts=4, bucket_cap=64,
                                      axis_name=ShardAxis(0, 1)))
+
+
+def test_regrow_attempt_seconds_reach_the_event_and_counter():
+    """A bucket capacity of 1 on SSSP overflows: each regrow event
+    carries its discarded attempt's seconds (up to the readback) as
+    ``attempt_s``, ``host.redo_s`` counts the same seconds, and with the
+    tracer on each such attempt is a ``superstep`` span tagged redo."""
+    from repro_torch.obs import trace
+    tracer = trace.start()
+    try:
+        tr = _torch_run("host", "sssp", bucket_cap=1)
+    finally:
+        trace.stop()
+    regrows = [s for s in tr.stats if s.get("event") == "regrow"]
+    assert regrows and all(s["attempt_s"] > 0 for s in regrows)
+    redo_s = sum(s["metrics"]["host.redo_s"] for s in tr.stats
+                 if "wall_s" in s)
+    assert redo_s == pytest.approx(sum(s["attempt_s"] for s in regrows),
+                                   rel=1e-9)
+    steps = [ev for _, _, evs in tracer.drain() for ev in evs
+             if ev[0] == "X" and ev[1] == "superstep"]
+    assert sum(1 for ev in steps if ev[5].get("redo")) == len(regrows)
+    assert len(steps) == tr.supersteps + len(regrows)
