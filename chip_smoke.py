@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (so the script exits non-zero
 and never prints its last line):
 
-1. device: the card's name and power limit; the build time of all four
+1. device: the card's name and power limit; the build time of all five
    kernels (one nvcc per source, all at once); per kernel library, the
    counts of HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in its
    SASS; the two serving kernels must show HGMMA and UTMALDG.
@@ -21,7 +21,12 @@ and never prints its last line):
    segment_combine_blocked bit for bit, one partition at a time. The gather (V = 1, 2, 3 and 5,
    E not a multiple of 4, sorted and shuffled sources, with and without
    edge weights, pointers off the 16-byte grid) must match
-   edge_gather_ref exactly. Flash
+   edge_gather_ref exactly. The receiver's scatter group-by at btc-14m's
+   inbox shape (4 x 18.7 M rows, D = 1: random slots with repeats and 20
+   % invalid rows, and no row valid) and small cases (D = 1 to 4, +-inf,
+   one hub slot, valid rows at slot Np, past it and below 0, which it
+   drops) must match scatter_combine_ref: has, min and max bit for bit,
+   sums to rtol 1e-6; a NaN row leaves its slot NaN. Flash
    attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
    bf16, causal), at gemma3-12b's (B 8, S 2048, 16 heads over 8, hd 240),
    at zamba2-1.2b's shared block's (B 8, S 2048, 32 heads, hd 64),
@@ -50,7 +55,8 @@ and never prints its last line):
    (left_outer) through load_graph -> run_host -> gather_values, held to
    a scipy float64 power iteration (rtol 1e-4) and to scipy's unweighted
    shortest paths (exact). The counts are set to 0 before the path and
-   read after it: the fold's and the gather's must be > 0.
+   read after it: the fold's and the gather's must be > 0, and each run
+   must launch the receiver's scatter_combine.
 4. CC and PageRank at webmap-tiny's shape (rmat 20k/240k) on the card and
    through the port's plain path on the CPU: CC equal, PageRank within
    rtol 1e-5.
@@ -60,7 +66,10 @@ and never prints its last line):
    call, bit-equal to the plain fold and to itself over 20 repeats, with
    scatter_reduce over partition-offset keys as the yardstick; the
    gather over the flattened edge stream in the engine's order and
-   shuffled (seeded).
+   shuffled (seeded). After phase 6, the scatter group-by at
+   btc-14m.pagerank's inbox (runs of distinct ascending slots, the rest
+   invalid), every row valid, and no row valid, against the plain chain
+   (torch's scatter_add_ through a sink slot).
 6. profile: device time by kernel (torch.profiler) for the fold's one
    launch and for one PageRank and one SSSP superstep, with the device
    busy share of the wall time; ``--profile-out PATH`` also writes the
@@ -317,6 +326,9 @@ FOLD_SRC = "src/repro_torch/kernels/csrc/segment_combine.cu"
 GATHER_SRC = "src/repro_torch/kernels/csrc/csr_spmv.cu"
 FOLD_REPLACES = "src/repro/kernels/segment_combine/segment_combine.py:80"
 GATHER_REPLACES = "src/repro/kernels/csr_spmv/csr_spmv.py:38"
+SCATTER_SRC = "src/repro_torch/kernels/csrc/scatter_combine.cu"
+SCATTER_REPLACES = ("src/repro/core/groupby.py scatter_combine_dense (XLA's "
+                    "scatter; no Pallas kernel)")
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 GMM_SRC = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:75"
@@ -343,6 +355,11 @@ YI_FLASH_SHAPE = dict(B=8, S=2048, H=56, KV=8, hd=128)
 LLAMA4_GMM_SHAPE = dict(T=16384, d=5120, f=8192, E=128)
 YI_LAYERS = 8        # phase 22's yi-34b depth (of 60)
 LLAMA4_LAYERS = 2    # phase 22's llama4-maverick depth (of 48): one period
+# btc-14m.pagerank's receiver inbox (bench/configs/btc-14m.json, P = 4):
+# Np slots a partition, one run of bucket_cap = Np + 8 rows from each of
+# the 4 source partitions, each run's valid rows the distinct ascending
+# slots of 89 % of the 3,596,989 vertices a partition owns
+BTC_INBOX = dict(P=4, Np=4_676_087, runs=4, owned=3_596_989, density=0.89)
 # the kernels each main path must launch
 GRAPH_KERNELS = ("segment_combine", "csr_spmv")
 SERVING_KERNELS = ("flash_attention", "moe_gmm")
@@ -626,13 +643,196 @@ def gather_parity(device) -> float:
     return err
 
 
+def scatter_stream(P: int, M: int, Np: int, D: int, device, *, seed: int,
+                   invalid: float = 0.2, slots: int = 0, nonfinite=False):
+    """A receiver inbox of P partitions of M rows: slots drawn from [0,
+    ``slots`` or Np) (repeats, in no order), ``invalid`` of the rows
+    invalid with their slot set to the sink Np as the engine's _slot_of
+    does, payload uniform in [0, 1) (+-inf where ``nonfinite``). Made on
+    ``device`` from a seeded generator."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    slot = torch.randint(0, slots or Np, (P, M), generator=g, device=device,
+                         dtype=torch.int32)
+    valid = torch.rand((P, M), generator=g, device=device) >= invalid
+    slot = torch.where(valid, slot, Np)
+    pay = torch.rand((P, M, D), generator=g, device=device)
+    if nonfinite:
+        pick = torch.rand((P, M, D), generator=g, device=device)
+        pay[pick < 0.02] = float("inf")
+        pay[(pick >= 0.02) & (pick < 0.04)] = float("-inf")
+    return slot, pay, valid
+
+
+def check_scatter(slot, pay, valid, Np: int, op: str, what: str = "",
+                  plain=None):
+    """The kernel's wrapper against the plain chain on the same tensors:
+    has, min and max bit for bit (NaN where NaN), sums to rtol 1e-6
+    (atomics add in no fixed order). ``plain`` gives the plain chain's
+    inputs where they differ (rows the kernel drops, the chain cannot
+    take). -> max abs err of the finite values."""
+    import torch
+    from repro_torch.kernels.scatter_combine import (scatter_combine,
+                                                     scatter_combine_ref)
+    got, has_k = scatter_combine(slot, pay, valid, Np, op)
+    want, has_p = scatter_combine_ref(*(plain or (slot, pay, valid)), Np, op)
+    ok = bool(torch.equal(has_k, has_p))
+    if op == "sum":
+        ok = ok and bool(torch.allclose(got, want, rtol=1e-6, atol=0,
+                                        equal_nan=True))
+    else:
+        ok = ok and same_bits(got, want)
+    if not ok:
+        raise AssertionError(
+            f"scatter_combine {op} {what} shape {tuple(pay.shape)} Np {Np}: "
+            f"kernel != plain (has equal {bool(torch.equal(has_k, has_p))}, "
+            f"max abs err {max_abs_err(got, want)})")
+    return max_abs_err(got, want)
+
+
+def scatter_parity(device, inbox=None) -> float:
+    """The receiver group-by's kernel against its plain chain: at
+    btc-14m's inbox shape (``inbox``: P, Np; M = 4 (Np + 8) rows, D = 1),
+    random streams with 20 % invalid rows and repeated slots and an
+    all-invalid inbox (the first superstep's), for sum, min and max; then
+    small cases: D = 1 to 4, +-inf and NaN payloads, every row at one
+    slot, M not a multiple of the kernel's 1024-row block, M = 1, valid
+    rows at slot Np, past it and below 0 (the kernel drops them; the
+    plain chain is given them as invalid rows)."""
+    import torch
+    inbox = inbox or BTC_INBOX
+    P_, Np = inbox["P"], inbox["Np"]
+    M = 4 * (Np + 8)
+    err = 0.0
+    for op in ("sum", "min", "max"):
+        big = scatter_stream(P_, M, Np, 1, device, seed=7)
+        err = max(err, check_scatter(*big, Np, op, "btc-14m inbox"))
+        slot, pay, valid = big
+        none = torch.zeros_like(valid)
+        err = max(err, check_scatter(torch.full_like(slot, Np), pay, none,
+                                     Np, op, "btc-14m inbox, all invalid"))
+        del big, slot, pay, valid, none
+        free(device)
+        for D in (1, 2, 3, 4):
+            for (P_s, M_s, Np_s) in ((1, 1, 5), (3, 1023, 40),
+                                     (4, 100_003, 20_000)):
+                err = max(err, check_scatter(
+                    *scatter_stream(P_s, M_s, Np_s, D, device, seed=D + M_s,
+                                    nonfinite=op != "sum"),
+                    Np_s, op, f"D={D}"))
+            # every row at one of 3 slots: the most contended atomics
+            # (a sum over 64 rows a slot: two orders of 10,000 float32
+            # adds differ by more than rtol 1e-6)
+            hub = 200 if op == "sum" else 50_000
+            err = max(err, check_scatter(
+                *scatter_stream(2, hub, 1000, D, device, seed=D, slots=3,
+                                nonfinite=op != "sum"),
+                1000, op, f"hub D={D}"))
+        # valid rows at Np, past it and below 0: dropped
+        slot, pay, valid = scatter_stream(4, 10_000, 300, 2, device, seed=3)
+        g = torch.Generator(device=device).manual_seed(4)
+        pick = torch.rand(slot.shape, generator=g, device=device)
+        slot = torch.where(pick < 0.05, 300, slot)
+        slot = torch.where((pick >= 0.05) & (pick < 0.1), 301, slot)
+        slot = torch.where((pick >= 0.1) & (pick < 0.15), 2 ** 31 - 1, slot)
+        slot = torch.where((pick >= 0.15) & (pick < 0.2), -1, slot)
+        keep = valid & (slot >= 0) & (slot < 300)
+        plain = (torch.where(keep, slot, 300), pay, keep)
+        # on the CPU both sides are the plain chain, which raises on them
+        kern = (slot, pay, valid) if device == "cuda" else plain
+        err = max(err, check_scatter(*kern, 300, op, "slots outside [0, Np)",
+                                     plain=plain))
+    # a NaN stays, whatever comes after it; -0.0 against +0.0
+    nan = torch.tensor([[float("nan"), -5.0, float("inf"), 2.0]],
+                       device=device)[..., None]
+    z = torch.zeros((1, 4), dtype=torch.int32, device=device)
+    on = torch.ones((1, 4), dtype=torch.bool, device=device)
+    from repro_torch.kernels.scatter_combine import scatter_combine
+    for op in ("sum", "min", "max"):
+        for order in ([0, 1, 2, 3], [3, 2, 1, 0]):
+            got = scatter_combine(z, nan[:, order].contiguous(), on, 1, op)[0]
+            if not bool(torch.isnan(got).all()):
+                raise AssertionError(f"scatter_combine {op}: a NaN row did "
+                                     f"not stay NaN (order {order})")
+    return err
+
+
+def inbox_like_btc(kind: str, seed: int, inbox=None):
+    """btc-14m.pagerank's receiver inbox at P = 4 as the exchange leaves
+    it: each partition's M = 4 (Np + 8) rows are 4 runs, one a source
+    partition; a run's valid rows hold distinct ascending slots (a
+    sender combine's output), 89 % of the partition's owned vertices,
+    and the rest of the run is invalid at the sink slot Np. kind
+    "mixed" is that; "valid" every row valid (each run's slots drawn
+    with repeats from the owned range, ascending); "invalid" no row
+    valid (the first superstep's). payload uniform, D = 1."""
+    import torch
+    inbox = inbox or BTC_INBOX
+    P_, Np, R, owned = (inbox["P"], inbox["Np"], inbox["runs"],
+                        inbox["owned"])
+    C = Np + 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    slot = torch.full((P_, R, C), Np, dtype=torch.int32, device="cuda")
+    valid = torch.zeros((P_, R, C), dtype=torch.bool, device="cuda")
+    for p in range(P_):
+        for r in range(R):
+            if kind == "mixed":
+                s = torch.nonzero(torch.rand(owned, generator=g,
+                                             device="cuda")
+                                  < inbox["density"])[:, 0]
+            elif kind == "valid":
+                s = torch.sort(torch.randint(0, owned, (C,), generator=g,
+                                             device="cuda")).values
+            else:
+                continue
+            slot[p, r, :len(s)] = s.to(torch.int32)
+            valid[p, r, :len(s)] = True
+    pay = torch.rand((P_, R * C, 1), generator=g, device="cuda")
+    return slot.reshape(P_, R * C), pay, valid.reshape(P_, R * C), Np
+
+
+def scatter_timing(launches: int, inbox=None) -> dict:
+    """The receiver group-by at btc-14m.pagerank's inbox shape: the
+    kernel and the plain chain (torch's scatter_add_ with the sink slot)
+    on the realistic inbox (runs of distinct ascending slots, the rest
+    invalid), on an inbox with every row valid and on one with none
+    (the first superstep's), sum over D = 1; kernel equal to the plain
+    chain to rtol 1e-6 on each. Bound: 9 B a row (slot, payload, valid
+    read) and 5 B a slot (dense and has written)."""
+    import torch
+    from repro_torch.kernels.scatter_combine import (scatter_combine_cuda,
+                                                     scatter_combine_ref)
+    res = {}
+    for kind in ("mixed", "valid", "invalid"):
+        slot, pay, valid, Np = inbox_like_btc(kind, 8, inbox)
+        err = check_scatter(slot, pay, valid, Np, "sum", f"btc-14m {kind}")
+        res[kind] = dict(
+            ms=time_ms(lambda: scatter_combine_cuda(slot, pay, valid, Np,
+                                                    "sum")),
+            plain_ms=time_ms(lambda: scatter_combine_ref(slot, pay, valid,
+                                                         Np, "sum")),
+            valid_rows=int(valid.sum()), max_abs_err=err)
+        P_, M = slot.shape
+        del slot, pay, valid
+        free("cuda")
+    nbytes = P_ * M * (4 + 4 + 1) + P_ * Np * (4 + 1)
+    return dict(name="scatter_combine", route="cuda", source=SCATTER_SRC,
+                replaces=SCATTER_REPLACES, launches=launches,
+                **res["mixed"], bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
+                bound_by="bytes", all_valid=res["valid"],
+                all_invalid=res["invalid"],
+                shape=dict(P=P_, M=M, Np=Np, D=1))
+
+
 # ------------------------------------------------------------- main
 
 def run_main_path(edges, n, device, stats_out: dict):
-    """PageRank + SSSP through the port's entry points on ``device``."""
+    """PageRank + SSSP through the port's entry points on ``device``;
+    each run must launch the receiver's scatter_combine kernel."""
     import torch
     from repro_torch.core import gather_values, load_graph, run_host
     from repro_torch.graph import SSSP, PageRank
+    from repro_torch.kernels import COUNTERS
     out = {}
     for name, prog, vd in (("pagerank", PageRank(n, iterations=15), 2),
                            ("sssp", SSSP(source=0), 1)):
@@ -644,20 +844,24 @@ def run_main_path(edges, n, device, stats_out: dict):
         if device == "cuda":   # phase 16 (b) reads the run's peak
             torch.cuda.reset_peak_memory_stats()
             mem = dict(allocated_before_bytes=torch.cuda.memory_allocated())
+        before = {k: c.launches for k, c in COUNTERS.items()}
         t0 = time.perf_counter()
         res = run_host(vert, prog, prog.suggested_plan, max_supersteps=60)
         sync()
         if device == "cuda":
             mem["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         walls = [s["wall_s"] for s in res.stats if "wall_s" in s]
+        launches = {k: c.launches - before[k] for k, c in COUNTERS.items()}
+        need_launches(name, dict(launches=launches), ("scatter_combine",),
+                      device)
         stats_out[name] = dict(
             supersteps=res.supersteps, run_s=time.perf_counter() - t0,
             superstep_median_s=statistics.median(walls),
             superstep_median_after_first_s=(statistics.median(walls[1:])
                                             if len(walls) > 1 else None),
             events=[s["event"] for s in res.stats if "event" in s],
-            shape=dict(P=P, Np=vert.vid.shape[1],
-                       Ep=vert.edge_src.shape[1]), **mem)
+            launches=launches, shape=dict(P=P, Np=vert.vid.shape[1],
+                                          Ep=vert.edge_src.shape[1]), **mem)
         out[name] = gather_values(res.vertex, n)
         del vert, res
         free(device)
@@ -4280,6 +4484,8 @@ def card_phases(args, name: str, child) -> int:
     torch.cuda.synchronize()
     gather_err = gather_parity("cuda")
     torch.cuda.synchronize()
+    scatter_err = scatter_parity("cuda")
+    torch.cuda.synchronize()
     flash_err = flash_parity()
     torch.cuda.synchronize()
     gmm_err = gmm_parity()
@@ -4287,7 +4493,8 @@ def card_phases(args, name: str, child) -> int:
     flash_grad_err = flash_grad_parity()
     gmm_grad_err = gmm_grad_parity()
     log(f"kernel parity: fold bit-exact (max abs err {fold_err}), gather "
-        f"exact (max abs err {gather_err}), flash_attention (max abs err "
+        f"exact (max abs err {gather_err}), scatter_combine (max abs err "
+        f"{scatter_err}), flash_attention (max abs err "
         f"{flash_err}), moe_gmm (max abs err {gmm_err}); gradients: "
         f"flash_attention (max abs err {flash_grad_err}), moe_gmm (max abs "
         f"err {gmm_grad_err}) in {time.perf_counter() - t:.1f} s")
@@ -4326,6 +4533,10 @@ def card_phases(args, name: str, child) -> int:
         f"{stats['sssp']['superstep_median_s']}; data preparation s "
         f"{prep_s}")
     del vert
+    torch.cuda.empty_cache()
+    # the receiver group-by at btc-14m.pagerank's inbox (5, continued)
+    kernels.append(scatter_timing(launches["scatter_combine"]))
+    log(f"scatter_combine timing: {json.dumps(kernels[-1])}")
     torch.cuda.empty_cache()
 
     # 7. reduced qwen2-moe, card vs CPU

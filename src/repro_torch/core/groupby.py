@@ -8,9 +8,11 @@ leading partition axis P.
 * run-combine  — one-pass combine of presorted runs (the receiver side of
                  the m-to-n partitioning MERGING connector).
 
-A dropped scatter (``mode="drop"`` in the reference) becomes a scatter
-into one extra sink row that is sliced off afterwards. Float sums are
-taken in another order than the reference's scatter-add and
+The scatter group-by runs through ``kernels/backend.py``: the
+scatter_combine kernel on CUDA tensors, its plain chain on CPU tensors.
+Elsewhere a dropped scatter (``mode="drop"`` in the reference) becomes a
+scatter into one extra sink row that is sliced off afterwards. Float
+sums are taken in another order than the reference's scatter-add and
 ``associative_scan``, so they agree to rounding; min/max agree exactly.
 """
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels import backend as kbackend
+
 INT32_MAX = 2 ** 31 - 1
 
 MONOIDS = {
@@ -26,8 +30,6 @@ MONOIDS = {
     "min": (torch.minimum, float("inf")),
     "max": (torch.maximum, float("-inf")),
 }
-
-_SCATTER_REDUCE = {"min": "amin", "max": "amax"}
 
 
 def row_cumsum(mask: torch.Tensor) -> torch.Tensor:
@@ -73,20 +75,7 @@ def _rows(index: torch.Tensor, D: int) -> torch.Tensor:
 def scatter_combine_dense(slot, payload, valid, Np: int, op: str):
     """slot: (P, M) int; payload: (P, M, D); valid: (P, M) ->
     (dense (P, Np, D), has_msg (P, Np))."""
-    _, ident = MONOIDS[op]
-    P, M, D = payload.shape
-    tgt = torch.where(valid, slot, Np)                       # Np = sink
-    dense = torch.full((P, Np + 1, D), ident, dtype=payload.dtype,
-                       device=payload.device)
-    upd = torch.where(valid[..., None], payload, ident)
-    if op == "sum":
-        dense.scatter_add_(1, _rows(tgt, D), upd)
-    else:
-        dense.scatter_reduce_(1, _rows(tgt, D), upd, _SCATTER_REDUCE[op],
-                              include_self=True)
-    has = torch.zeros((P, Np + 1), dtype=torch.bool, device=payload.device)
-    has.scatter_(1, tgt.long(), valid)        # invalid rows hit the sink
-    return dense[:, :Np], has[:, :Np]
+    return kbackend.scatter_fold_dense(slot, payload, valid, Np, op)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ a ``meta`` tensor (shapes only, for the operator counter) takes the plain
 path.
 There is no fallback from one to the other and no override from the
 environment. The rest is the layer the superstep calls: the
-partition-flattened edge gather and the batched blocked segmented fold.
+partition-flattened edge gather, the batched blocked segmented fold and
+the receiver's scatter into dense slots.
 Only the innermost function depends on the device, so a CPU run walks
 the control flow of a CUDA run. ``plan_edge_layout`` is the port's copy
 of the reference's host layout for its row-blocked gather; no superstep
@@ -24,6 +25,8 @@ import torch
 from repro_torch.core.plan import KERNEL_IMPLS
 from repro_torch.kernels.csr_spmv.csr_spmv import edge_gather
 from repro_torch.kernels.csr_spmv.ops import plan_layout_fixed
+from repro_torch.kernels.scatter_combine.scatter_combine import \
+    scatter_combine
 from repro_torch.kernels.segment_combine.segment_combine import \
     segment_combine
 
@@ -99,3 +102,15 @@ def sorted_segment_fold(keys: torch.Tensor, payload: torch.Tensor,
     tensors."""
     return segment_combine(keys, payload, valid, op,
                            block_m=COMBINE_BLOCK_M)
+
+
+def scatter_fold_dense(slot: torch.Tensor, payload: torch.Tensor,
+                       valid: torch.Tensor, Np: int, op: str):
+    """The receiver group-by of a named monoid (D1): fold each valid
+    row's payload into dense slot ``slot`` of its partition. slot: (P, M)
+    int; payload: (P, M, D); valid: (P, M). Returns (dense (P, Np, D),
+    the identity where no valid row arrived; has (P, Np)). On CUDA
+    tensors one kernel call (a fill and a pass over the rows) in which
+    invalid rows, and valid ones whose slot lies outside [0, Np), write
+    nothing; on CPU and meta tensors the plain scatter chain."""
+    return scatter_combine(slot, payload, valid, Np, op)

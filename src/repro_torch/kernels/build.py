@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-KERNELS = ("segment_combine", "csr_spmv", "flash_attention", "moe_gmm")
+KERNELS = ("segment_combine", "csr_spmv", "scatter_combine",
+           "flash_attention", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -187,6 +188,19 @@ def test_phase_2_gradients_on_the_cpu(monkeypatch):
         (200, 16, 24, 8, 5, "float32", False)])
     assert cs.flash_grad_parity("cpu") == 0.0
     assert cs.gmm_grad_parity("cpu") == 0.0
+
+
+def test_phase_2_scatter_parity_on_the_cpu():
+    """Phase 2's scatter group-by parity walks its cases at a small inbox
+    (P = 4, Np = 5000; the plain chain on both sides), NaN rows
+    included; the card's PageRank and SSSP runs of phase 3 each need a
+    scatter_combine launch, which the CPU path never makes."""
+    assert cs.scatter_parity("cpu", dict(P=4, Np=5000)) == 0.0
+    cs.need_launches("pagerank", {"launches": {"scatter_combine": 0}},
+                     ("scatter_combine",), "cpu")
+    with pytest.raises(AssertionError, match="scatter_combine"):
+        cs.need_launches("pagerank", {"launches": {"scatter_combine": 0}},
+                         ("scatter_combine",), "cuda")
 
 
 def test_phases_20_and_21_on_the_cpu():

@@ -60,14 +60,83 @@ def test_compact(cap):
         _same(g, w)
 
 
-@pytest.mark.parametrize("op", ["sum", "min", "max"])
-def test_scatter_combine_dense(op):
-    slot, pay, valid = _stream(1)
+def _scatter_case(case: str, seed: int):
+    """Inboxes for the scatter group-by: the first superstep's (every row
+    invalid), valid rows at the sink slot Np (dropped), D = 1, 3 and 4,
+    and +-inf payloads (min/max only: a sum of both is NaN)."""
+    if case == "stream":
+        return _stream(1)
+    rng = np.random.default_rng(seed)
+    d = {"d1": 1, "d3": 3, "d4": 4}.get(case, D)
+    slot = rng.integers(0, NP + (case == "slot_np"), (P, M)).astype(np.int32)
+    pay = rng.random((P, M, d)).astype(np.float32)
+    valid = rng.random((P, M)) >= 0.2
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "slot_np":
+        slot[:, ::7] = NP
+    if case == "inf":
+        pick = rng.random((P, M, d))
+        pay[pick < 0.1] = np.inf
+        pay[(pick >= 0.1) & (pick < 0.2)] = -np.inf
+        slot[:, :8] = 3              # a slot that sees both infinities
+    return slot, pay, valid
+
+
+SCATTER_CASES = (
+    [pytest.param(op, "stream", id=op) for op in ("sum", "min", "max")]
+    + [pytest.param(op, case, id=f"{op}-{case}")
+       for case in ("all_invalid", "slot_np", "d1", "d3", "d4", "inf")
+       for op in ("sum", "min", "max") if not (case == "inf" and op == "sum")])
+
+
+@pytest.mark.parametrize("op,case", SCATTER_CASES)
+def test_scatter_combine_dense(op, case):
+    slot, pay, valid = _scatter_case(case, 11)
     got = tg.scatter_combine_dense(*_t(slot, pay, valid), NP, op)
     want = jax.vmap(lambda s, p, v: jg.scatter_combine_dense(
         s, p, v, NP, op))(*_j(slot, pay, valid))
     _same(got[0], want[0], float_sum=(op == "sum"))
     _same(got[1], want[1])
+    if case == "all_invalid":
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_scatter_combine_shapes_on_meta_tensors(op):
+    """The operator counter's probe: the wrapper and the engine's entry
+    point take the plain chain on meta tensors and return outputs of the
+    plain version's shapes and dtypes, without a launch."""
+    from repro_torch.kernels.scatter_combine import counter, scatter_combine
+    slot = torch.empty((P, M), dtype=torch.int32, device="meta")
+    pay = torch.empty((P, M, 3), dtype=torch.float32, device="meta")
+    valid = torch.empty((P, M), dtype=torch.bool, device="meta")
+    before = counter.launches
+    for fn in (scatter_combine, tg.scatter_combine_dense):
+        dense, has = fn(slot, pay, valid, NP, op)
+        assert dense.device.type == "meta" and has.device.type == "meta"
+        assert dense.shape == (P, NP, 3) and dense.dtype == torch.float32
+        assert has.shape == (P, NP) and has.dtype == torch.bool
+    assert counter.launches == before
+
+
+def test_scatter_combine_kernel_refuses_cpu_tensors():
+    """The kernel's wrapper raises on CPU tensors, and a superstep of a
+    scatter group-by plan on CPU tensors under kernel_impl='cuda' raises
+    before anything runs: no silent plain path."""
+    from repro_torch.core import PhysicalPlan, load_graph, run_host
+    from repro_torch.graph import PageRank
+    from repro_torch.kernels.scatter_combine import scatter_combine_cuda
+    slot, pay, valid = _t(*_stream(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_combine_cuda(slot, pay, valid, NP, "sum")
+    edges = np.array([[0, 1], [1, 2], [2, 0], [2, 3]], dtype=np.int64)
+    vert = load_graph(edges, 4, 2, value_dims=2, device="cpu")
+    for connector in ("partitioning", "partitioning_merging"):
+        plan = PhysicalPlan(groupby="scatter", connector=connector,
+                            kernel_impl="cuda")
+        with pytest.raises(ValueError, match="kernel_impl='cuda'"):
+            run_host(vert, PageRank(4), plan, max_supersteps=2)
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
