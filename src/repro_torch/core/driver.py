@@ -43,6 +43,8 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.planner.stats import StatsCollector
 
 PlanArg = Union[PhysicalPlan, str]   # a PhysicalPlan or the string "auto"
+# run_host's counters of a program that mutates, one a superstep
+MUTATION_COUNTERS = ("mutate.deleted", "mutate.resurrected")
 
 
 @dataclass
@@ -338,6 +340,9 @@ def _run_job(vert, program, plan, max_supersteps, ec, checkpoint_every,
         m_regrows = metrics.counter("host.regrows")
         m_redo_s = metrics.counter("host.redo_s")
         m_switches = metrics.counter("host.plan_switches")
+        if program.mutates:
+            # vertices deleted (D6) and re-created (D1) a superstep
+            m_mutated = [metrics.counter(c) for c in MUTATION_COUNTERS]
     stats = []
     i = i0
     # a superstep built anew (the first, and after a regrow, a refit or a
@@ -351,8 +356,16 @@ def _run_job(vert, program, plan, max_supersteps, ec, checkpoint_every,
         # closes after it, so it times the superstep and not its enqueue
         with trace.annotate("superstep", "compute", superstep=i) as span:
             vert2, msg2, gs2 = step(vert, msg, gs)
+            # (2,) deleted and resurrected of a program that mutates
+            mutated = getattr(step, "mutations", None)
             with trace.annotate("superstep.readback", "collect"):
-                ovf_delta = (gs2.overflow - gs.overflow).cpu().numpy()
+                ovf_delta = gs2.overflow - gs.overflow
+                if mutated is None:
+                    ovf_delta = ovf_delta.cpu().numpy()
+                else:
+                    # the mutation counts ride in the same copy
+                    read = torch.cat([ovf_delta, mutated]).cpu().numpy()
+                    ovf_delta, mutated = read[:-2], read[-2:]
             redo = bool((ovf_delta > 0).any())
             if redo:
                 # a regrow's discarded attempt: its seconds up to the
@@ -382,6 +395,11 @@ def _run_job(vert, program, plan, max_supersteps, ec, checkpoint_every,
                 continue
             vert, msg, gs = vert2, msg2, gs2
             i += 1
+            if mutated is not None:
+                for c, name, v in zip(m_mutated, MUTATION_COUNTERS,
+                                      mutated.tolist()):
+                    c.inc(v)
+                    trace.counter(name, v)
             rec = coll.record(i, active=int(gs.active_count),
                               messages=int(gs.msg_count),
                               wall_s=time.time() - ts,

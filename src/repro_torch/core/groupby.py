@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import backend as kbackend
+from repro_torch.obs import trace
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -116,16 +117,21 @@ def _lasts(key: torch.Tensor) -> torch.Tensor:
     return torch.cat([key[..., 1:] != key[..., :-1], last], dim=-1)
 
 
+def _sort_rows(slot, payload, valid):
+    """Stable sort of each row by slot, invalid rows last: (sorted_slot,
+    sorted payload, sorted valid)."""
+    key = torch.where(valid, slot, INT32_MAX)
+    order = torch.argsort(key, dim=-1, stable=True)
+    return (torch.gather(key, -1, order),
+            torch.gather(payload, -2, _rows(order, payload.shape[-1])),
+            torch.gather(valid, -1, order))
+
+
 def sort_combine(slot, payload, valid, combine: Callable):
     """Stable sort by slot and fold each run. Returns (sorted_slot (P, M),
     folded (P, M, D), is_last (P, M)) where is_last marks one entry per
     group."""
-    D = payload.shape[-1]
-    key = torch.where(valid, slot, INT32_MAX)
-    order = torch.argsort(key, dim=-1, stable=True)
-    ks = torch.gather(key, -1, order)
-    ps = torch.gather(payload, -2, _rows(order, D))
-    vs = torch.gather(valid, -1, order)
+    ks, ps, vs = _sort_rows(slot, payload, valid)
     folded = segmented_fold(_starts(ks), ps, combine)
     return ks, folded, _lasts(ks) & vs
 
@@ -133,19 +139,26 @@ def sort_combine(slot, payload, valid, combine: Callable):
 def sort_combine_dense(slot, payload, valid, Np: int, op):
     """Sort group-by materialized to dense slots (full-outer join input).
     ``op`` is a monoid name or a custom ``(combine, identity)`` pair:
-    combine is elementwise over (..., D) rows, identity a (D,) tensor."""
+    combine is elementwise over (..., D) rows, identity a (D,) tensor.
+    Two spans: ``superstep.groupby.sort`` (the argsort and its gathers)
+    and ``superstep.groupby.fold`` (the fold and the dense scatters)."""
     fn, ident = MONOIDS[op] if isinstance(op, str) else op
     P, M, D = payload.shape
-    ks, folded, is_last = sort_combine(slot, payload, valid, fn)
-    tgt = torch.where(is_last & (ks < Np), ks, Np)           # Np = sink
-    dense = torch.empty((P, Np + 1, D), dtype=payload.dtype,
-                        device=payload.device)
-    dense[:] = torch.as_tensor(ident, dtype=payload.dtype,
-                               device=payload.device)
-    dense.scatter_(1, _rows(tgt, D), folded)
-    has = torch.zeros((P, Np + 1), dtype=torch.bool, device=payload.device)
-    has.scatter_(1, tgt.long(), is_last)
-    return dense[:, :Np], has[:, :Np]
+    with trace.annotate("superstep.groupby.sort", "compute"):
+        ks, ps, vs = _sort_rows(slot, payload, valid)
+    with trace.annotate("superstep.groupby.fold", "compute"):
+        folded = segmented_fold(_starts(ks), ps, fn)
+        is_last = _lasts(ks) & vs
+        tgt = torch.where(is_last & (ks < Np), ks, Np)       # Np = sink
+        dense = torch.empty((P, Np + 1, D), dtype=payload.dtype,
+                            device=payload.device)
+        dense[:] = torch.as_tensor(ident, dtype=payload.dtype,
+                                   device=payload.device)
+        dense.scatter_(1, _rows(tgt, D), folded)
+        has = torch.zeros((P, Np + 1), dtype=torch.bool,
+                          device=payload.device)
+        has.scatter_(1, tgt.long(), is_last)
+        return dense[:, :Np], has[:, :Np]
 
 
 # ---------------------------------------------------------------------------

@@ -168,14 +168,16 @@ def out_degrees(vert: VertexRel) -> torch.Tensor:
 
 def gather_values(vert: VertexRel, num_vertices: int) -> np.ndarray:
     """Dump the Vertex relation back out (HDFS write analogue):
-    -> (num_vertices, V) float32 in vid order, on the host."""
+    -> (num_vertices, V) float32 in vid order, on the host. The rows are
+    placed on the relation's device and copied back once (on the card a
+    host scatter of 10^8 rows took seconds)."""
     P, Np, V = vert.value.shape
-    vid = vert.vid.reshape(-1).cpu().numpy()
-    val = vert.value.reshape(-1, V).cpu().numpy()
-    out = np.zeros((num_vertices, V), np.float32)
+    vid = vert.vid.reshape(-1)
     ok = vid >= 0
-    out[vid[ok]] = val[ok]
-    return out
+    out = torch.zeros((num_vertices, V), dtype=torch.float32,
+                      device=vid.device)
+    out[vid[ok].long()] = vert.value.reshape(-1, V)[ok].float()
+    return out.cpu().numpy()
 
 
 # ------------------------------------------------------------ state transfer

@@ -88,6 +88,13 @@ def _scatter_rows(full: torch.Tensor, rows: torch.Tensor,
     return out[:, :n]
 
 
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """The True entries of a bool tensor, as an int32 device scalar,
+    summed as bytes into int32: on the H100, 0.45 ms over 4 x 34.6 M
+    vertex slots against 0.85 ms for ``mask.sum()``."""
+    return mask.view(torch.uint8).sum(dtype=torch.int32)
+
+
 def compact_combined(dst, payload, valid, capc: int):
     """Fused combine -> exchange-pack leg: compact each partition's
     combined survivors (one row per distinct destination, dst ascending)
@@ -153,7 +160,8 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         holds vid s * n_parts + p (hash) or s + p * Np (range), so the
         vid is recoverable from the address. ``part0`` (out-of-core) is
         the global index of the block's first partition: the resident
-        rows are partitions part0 .. part0 + P - 1, not 0 .. P - 1."""
+        rows are partitions part0 .. part0 + P - 1, not 0 .. P - 1.
+        Returns (the relation, the number of vertices re-created)."""
         P, Np = vert.vid.shape
         dev = vert.vid.device
         make = has_msg & (vert.vid < 0)
@@ -167,7 +175,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         return dataclasses.replace(
             vert, vid=torch.where(make, slot_vid, vert.vid),
             halt=torch.where(make, False, vert.halt),
-            value=torch.where(make[..., None], 0.0, vert.value))
+            value=torch.where(make[..., None], 0.0, vert.value)), _count(make)
 
     def run_compute(vert: VertexRel, combined, has_msg, gs):
         P, Np = vert.vid.shape
@@ -339,7 +347,12 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         super-partition. Under ``ec.ooc_collect`` the message output
         carries the PRE-EXCHANGE (P, n_parts, C) buckets, and the step
         also returns the per-(src, dst) occupancy counts (P, n_parts)
-        and the insert-proposal buckets (or None)."""
+        and the insert-proposal buckets (or None).
+
+        For a program that ``mutates``, each call leaves on
+        ``superstep.mutations`` its (2,) int32 device tensor of vertices
+        deleted (D6) and re-created (D1's resurrect) in this superstep,
+        summed over the ranks like the other tallies; None otherwise."""
         kbackend.resolve(plan.kernel_impl, vert.vid.device)
         P, Np = vert.vid.shape
         dev = vert.vid.device
@@ -349,8 +362,9 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         # 1-2. receiver group-by + join + select (D1)
         with trace.annotate("superstep.groupby", "compute"):
             combined, has_msg = receiver_groupby(msg, Np)
-            if program.mutates:
-                vert = resurrect(vert, has_msg, part0)
+        if program.mutates:
+            with trace.annotate("superstep.resurrect", "compute"):
+                vert, n_resurrected = resurrect(vert, has_msg, part0)
         with trace.annotate("superstep.compute", "compute"):
             out, active, frontier = run_compute(vert, combined, has_msg,
                                                 gs)
@@ -380,8 +394,11 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         m_ovf = torch.zeros((), dtype=torch.int32, device=dev)
         mut_buckets = None
         vid, edge_dst, edge_val = vert.vid, vert.edge_dst, vert.edge_val
+        n_deleted = None
         if out.has_mutations():
             with trace.annotate("superstep.mutate", "compute"):
+                if program.mutates and out.delete_self is not None:
+                    n_deleted = _count(out.delete_self & (vert.vid >= 0))
                 (vid, value, halt, edge_dst, edge_val, m_ovf,
                  mut_buckets) = apply_mutations(vert, value, halt, out)
         # 6. global state. Overflow is counted PER SOURCE (bucket /
@@ -389,13 +406,17 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         # capacity that overflowed.
         with trace.annotate("superstep.reduce", "compute"):
             zero = torch.zeros((), dtype=torch.int32, device=dev)
-            tallies = torch.stack([
+            tallies = [
                 i32(r_val.sum()),
                 i32(ovf) + i32(ovf_pack),
                 i32(frontier[2].sum()) if frontier is not None else zero,
                 i32(m_ovf),
                 i32(ovf_edges),
-                i32(active.sum())])
+                i32(active.sum())]
+            if program.mutates:
+                tallies += [zero if n_deleted is None else n_deleted,
+                            n_resurrected]
+            tallies = torch.stack(tallies)
             not_all_halted = i32(~(halt | (vid < 0)).all()).reshape(1)
             if agg is not None:
                 contrib, mask = agg
@@ -418,6 +439,7 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         msg_count = tallies[0]
         overflow = tallies[1:5]
         active_count = tallies[5]
+        superstep.mutations = tallies[6:] if program.mutates else None
         halt_all = not_all_halted[0] == 0
         g_halt = halt_all & (msg_count == 0)
         new_vert = VertexRel(vid=vid, halt=halt, value=value,
@@ -441,4 +463,5 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
             return new_vert, new_msg, new_gs, counts, mut_buckets
         return new_vert, new_msg, new_gs
 
+    superstep.mutations = None
     return superstep

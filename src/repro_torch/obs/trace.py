@@ -191,6 +191,7 @@ class Tracer:
         if torch_annotations:
             from torch.profiler import record_function
             self.annotation = record_function
+            _warm_record_function()
 
     def _buf(self) -> list:
         b = getattr(self._local, "buf", None)
@@ -249,6 +250,19 @@ class Tracer:
             for tid, nm, ev in buffers:
                 self._bufs.append((tid_base + tid % (1 << 32),
                                    f"{nm} [{label}]", list(ev)))
+
+
+def _warm_record_function():
+    """Do now what ``record_function`` does on its first entry in a
+    process: import torch's optional CUPTI monitor module (1.7 ms on an
+    idle CPU host, more on a loaded one). Left to the first span, that
+    import falls between the profiler's stamp of the range's start and
+    the span's own, so the first span would start late on the shared
+    clock."""
+    from torch.autograd import profiler
+    warm = getattr(profiler, "_maybe_cupti_monitor", None)
+    if warm is not None:
+        warm()
 
 
 # ---- module-level API (what the engine instruments against) ----------

@@ -585,9 +585,13 @@ def test_spans_share_the_profilers_clock(tmp_path):
     each span of the port's export starts and ends where the profiler's
     range of the same name does, both read on the epoch clock (base +
     ts). The profiler's range opens first and closes last: measured on a
-    CPU host, the port's span started 5-90 us after it (up to 1.4 ms on
-    the first, cold call) and ended 6-220 us before it. The bounds allow
-    10 ms for a loaded host and 0.2 ms of clock error the other way."""
+    CPU host, the port's span started 5-105 us after it and ended 7-220
+    us before it, with 12 processes spinning on the host's 8 cores too.
+    (The first range of a process used to import torch's CUPTI monitor
+    module between the two stamps, which started the first span 1.6-2.1
+    ms late on an idle host and up to 5.6 ms late on that loaded one;
+    ``trace.start`` now does that import.) The bounds allow 10 ms for a
+    loaded host and 0.2 ms of clock error the other way."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU])
     prof.start()
@@ -613,3 +617,76 @@ def test_spans_share_the_profilers_clock(tmp_path):
     for (s0, _, e0), (s1, _, e1) in zip(a, b):
         assert -200_000 <= s0 - s1 <= 10_000_000
         assert -10_000_000 <= e0 - e1 <= 200_000
+
+
+# ------------------------- the sort group-by's and mutations' spans
+
+SORT_AND_MUTATION_SPANS = {"superstep.groupby.sort", "superstep.groupby.fold",
+                           "superstep.resurrect"}
+MUTATION_COUNTERS = {"mutate.deleted", "mutate.resurrected"}
+
+
+def _events_of(tr, kind):
+    return [ev for _, _, evs in tr.drain() for ev in evs if ev[0] == kind]
+
+
+def test_sort_group_by_and_mutations_have_spans_and_counters():
+    """PathMerge on its own plan (``groupby="sort"``, a program that
+    mutates): each superstep holds ``superstep.resurrect`` right after
+    ``superstep.groupby``, which holds ``superstep.groupby.sort`` and then
+    ``.fold``; run_host samples ``mutate.deleted`` and
+    ``mutate.resurrected`` once a superstep, the counts that its stats
+    records carry."""
+    edges = np.array([[i, i + 1] for i in range(59)] + [[7, 70], [70, 71]])
+    vert = load_graph(edges, 72, P=4, value_dims=2, device="cpu")
+    prog = TG.PathMerge()
+    assert prog.suggested_plan.groupby == "sort" and prog.mutates
+    tr = trace.start()
+    try:
+        res = T.run_host(vert, prog, prog.suggested_plan)
+    finally:
+        trace.stop()
+    spans = _events_of(tr, "X")
+    by_id = {ev[6]: ev for ev in spans}
+    kids = {}
+    for ev in sorted(spans, key=lambda ev: (ev[3], ev[6])):
+        kids.setdefault(ev[7], []).append(ev[1])
+    steps = [ev for ev in spans if ev[1] == "superstep"]
+    assert len(steps) == res.supersteps == prog.rounds + 1
+    for ev in steps:
+        names = kids[ev[6]]
+        assert names[:2] == ["superstep.groupby", "superstep.resurrect"]
+    for ev in spans:
+        if ev[1] == "superstep.groupby":
+            assert kids[ev[6]] == ["superstep.groupby.sort",
+                                   "superstep.groupby.fold"]
+        if ev[1] in SORT_AND_MUTATION_SPANS - {"superstep.resurrect"}:
+            assert by_id[ev[7]][1] == "superstep.groupby"
+    samples = {}
+    for ev in _events_of(tr, "C"):
+        samples.setdefault(ev[1], []).append(ev[3])
+    assert set(samples) == MUTATION_COUNTERS
+    recs = [s["metrics"] for s in res.stats if "wall_s" in s]
+    for name in MUTATION_COUNTERS:
+        assert samples[name] == [m[name] for m in recs]
+    assert sum(samples["mutate.deleted"]) > 0
+    assert sum(samples["mutate.resurrected"]) > 0
+
+
+def test_pagerank_runs_no_new_span_or_counter():
+    """The sort group-by's and the mutations' spans and counters never
+    run on a PageRank job (scatter group-by, no mutation): the
+    benchmark's PageRank cells read as before."""
+    tr = trace.start()
+    try:
+        res = _pagerank_job()
+    finally:
+        trace.stop()
+    names = {ev[1] for ev in _events_of(tr, "X")}
+    assert "superstep.groupby" in names
+    assert not names & SORT_AND_MUTATION_SPANS
+    assert _events_of(tr, "C") == []
+    for s in res.stats:
+        if "wall_s" in s:
+            assert set(s["metrics"]) == {"host.regrows", "host.redo_s",
+                                         "host.plan_switches"}
