@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (so the script exits non-zero
 and never prints its last line):
 
-1. device: the card's name and power limit; the build time of all five
+1. device: the card's name and power limit; the build time of all six
    kernels (one nvcc per source, all at once); per kernel library, the
    counts of HGMMA (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) in its
    SASS; the two serving kernels must show HGMMA and UTMALDG.
@@ -26,7 +26,12 @@ and never prints its last line):
    % invalid rows, and no row valid) and small cases (D = 1 to 4, +-inf,
    one hub slot, valid rows at slot Np, past it and below 0, which it
    drops) must match scatter_combine_ref: has, min and max bit for bit,
-   sums to rtol 1e-6; a NaN row leaves its slot NaN. Flash
+   sums to rtol 1e-6; a NaN row leaves its slot NaN. The sort group-by's
+   fold at the genome cell's inbox (4 x 34.4 M rows sorted by slot, D =
+   1, a third valid and none) and small cases (D = 1 to 4, M = 1 and
+   ragged, runs across tiles, a run over 586 tiles, slots below 0, at Np
+   and past it, +-inf and NaN) must match sort_fold_dense_ref bit for
+   bit, sums included. Flash
    attention at the serving prefill's shape (B*H 128, S 2048, hd 128,
    bf16, causal), at gemma3-12b's (B 8, S 2048, 16 heads over 8, hd 240),
    at zamba2-1.2b's shared block's (B 8, S 2048, 32 heads, hd 64),
@@ -56,7 +61,7 @@ and never prints its last line):
    a scipy float64 power iteration (rtol 1e-4) and to scipy's unweighted
    shortest paths (exact). The counts are set to 0 before the path and
    read after it: the fold's and the gather's must be > 0, and each run
-   must launch the receiver's scatter_combine.
+   must launch the receiver's scatter_combine and not sort_fold_dense.
 4. CC and PageRank at webmap-tiny's shape (rmat 20k/240k) on the card and
    through the port's plain path on the CPU: CC equal, PageRank within
    rtol 1e-5.
@@ -69,7 +74,10 @@ and never prints its last line):
    shuffled (seeded). After phase 6, the scatter group-by at
    btc-14m.pagerank's inbox (runs of distinct ascending slots, the rest
    invalid), every row valid, and no row valid, against the plain chain
-   (torch's scatter_add_ through a sink slot).
+   (torch's scatter_add_ through a sink slot). After phase 10, the sort
+   group-by's fold at gage-chr14-k31.pathmerge's inbox, a third of the
+   rows valid and none, against its plain chain (the Hillis-Steele
+   network and the sink scatters), with its bound.
 6. profile: device time by kernel (torch.profiler) for the fold's one
    launch and for one PageRank and one SSSP superstep, with the device
    busy share of the wall time; ``--profile-out PATH`` also writes the
@@ -120,8 +128,8 @@ and never prints its last line):
    rounds) on a 2**22-vertex chain equals the port's CPU path bit for
    bit (run in a child process started after the build, so that it
    overlaps the card phases), conserves its mass, and launches the
-   gather; an insert program at the default mutation_cap regrows it and
-   lands on its closed form; a custom (selection) combine at webmap-
+   gather and the sort group-by's sort_fold_dense; an insert program at
+   the default mutation_cap regrows it and lands on its closed form; a custom (selection) combine at webmap-
    tiny's shape, sender combine on and off, equals the CPU path. Prints
    each run's supersteps, median superstep s and launches, k, the core's
    size, the survivors and the regrow events.
@@ -226,7 +234,8 @@ and never prints its last line):
    read after it: quickstart's SSSP equal to scipy's hop counts (the
    fold launched), the webmap PageRank within rtol 1e-4 of scipy's power
    iteration with its checkpoint repartitioned onto P = 3, PathMerge's
-   mass equal to n (both kernels launched in each).
+   mass equal to n (both kernels launched in each, and sort_fold_dense
+   in PathMerge).
 17. the decoders of slice 11 at reduced size (d 128, float32, window 8;
    gemma3-12b cut to 6 layers so that its global layer runs), the same
    weights served on the card and on the CPU, prompts 12 (local rings
@@ -329,6 +338,10 @@ GATHER_REPLACES = "src/repro/kernels/csr_spmv/csr_spmv.py:38"
 SCATTER_SRC = "src/repro_torch/kernels/csrc/scatter_combine.cu"
 SCATTER_REPLACES = ("src/repro/core/groupby.py scatter_combine_dense (XLA's "
                     "scatter; no Pallas kernel)")
+SORT_FOLD_SRC = "src/repro_torch/kernels/csrc/sort_fold_dense.cu"
+SORT_FOLD_REPLACES = ("src/repro/core/groupby.py sort_combine_dense (XLA's "
+                      "associative_scan and dropping scatter; no Pallas "
+                      "kernel)")
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 GMM_SRC = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:75"
@@ -360,6 +373,14 @@ LLAMA4_LAYERS = 2    # phase 22's llama4-maverick depth (of 48): one period
 # the 4 source partitions, each run's valid rows the distinct ascending
 # slots of 89 % of the 3,596,989 vertices a partition owns
 BTC_INBOX = dict(P=4, Np=4_676_087, runs=4, owned=3_596_989, density=0.89)
+# gage-chr14-k31.pathmerge's receiver inbox (bench/configs/gage-chr14-k31.json,
+# P = 4): load_graph's Np = int(ceil(91,289,826 / 4) * 1.3) + 1 slots a
+# partition; M = 4 runs of bucket_capacity = int((Ep / 4 + 8) * 1.5) rows,
+# Ep = GENOME_EP, the most edges a partition holds; a third of the rows
+# valid in the two supersteps that send, none in the other seven
+GENOME_EP = 22_901_414
+GENOME_INBOX = dict(P=4, M=4 * int((GENOME_EP / 4 + 8) * 1.5),
+                    Np=29_669_195, valid_share=1 / 3)
 # the kernels each main path must launch
 GRAPH_KERNELS = ("segment_combine", "csr_spmv")
 SERVING_KERNELS = ("flash_attention", "moe_gmm")
@@ -824,6 +845,127 @@ def scatter_timing(launches: int, inbox=None) -> dict:
                 shape=dict(P=P_, M=M, Np=Np, D=1))
 
 
+def sort_fold_stream(P: int, M: int, Np: int, D: int, device, *, seed: int,
+                     valid_share: float = 1 / 3, slots=(0, 0), run: int = 0,
+                     nonfinite=False):
+    """A sort group-by's streams as ``groupby._sort_rows`` leaves them:
+    per partition ``valid_share`` of M rows valid, slots drawn from
+    [slots[0], slots[1] or Np) (repeats; below 0 and Np or past it
+    dropped), the first ``run`` rows valid at one slot (a run over many
+    tiles), payload uniform in [0, 1) (+-inf and NaN where ``nonfinite``);
+    sorted stably by slot with the invalid rows keyed int32 max at the
+    tail. Made on ``device`` from a seeded generator. -> (keys, payload,
+    valid)."""
+    import torch
+    from repro_torch.core.groupby import _sort_rows
+    g = torch.Generator(device=device).manual_seed(seed)
+    slot = torch.randint(slots[0], slots[1] or Np, (P, M), generator=g,
+                         device=device, dtype=torch.int32)
+    valid = torch.rand((P, M), generator=g, device=device) < valid_share
+    slot[:, :run] = min(5, Np - 1)
+    valid[:, :run] = True
+    pay = torch.rand((P, M, D), generator=g, device=device)
+    if nonfinite:
+        pick = torch.rand((P, M, D), generator=g, device=device)
+        pay[pick < 0.02] = float("inf")
+        pay[(pick >= 0.02) & (pick < 0.04)] = float("-inf")
+        pay[(pick >= 0.04) & (pick < 0.045)] = float("nan")
+    return _sort_rows(slot, pay, valid)
+
+
+def check_sort_fold(keys, pay, valid, Np: int, op: str, what: str = ""):
+    """The sort group-by's fold: the kernel's wrapper against its plain
+    version (``sort_fold_dense_ref``, the same schedule) on the same
+    tensors, dense and has bit for bit (NaN where NaN). -> max abs err of
+    the finite values."""
+    import torch
+    from repro_torch.kernels.sort_fold_dense import (sort_fold_dense,
+                                                     sort_fold_dense_ref)
+    got, has_k = sort_fold_dense(keys, pay, valid, Np, op)
+    want, has_p = sort_fold_dense_ref(keys, pay, valid, Np, op)
+    if not (torch.equal(has_k, has_p) and same_bits(got, want)):
+        raise AssertionError(
+            f"sort_fold_dense {op} {what} shape {tuple(pay.shape)} Np {Np}: "
+            f"kernel != plain (has equal {bool(torch.equal(has_k, has_p))}, "
+            f"max abs err {max_abs_err(got, want)})")
+    return max_abs_err(got, want)
+
+
+def sort_fold_parity(device, inbox=None) -> float:
+    """The sort group-by's fold kernel against its plain version, bit for
+    bit: at the genome cell's inbox (``inbox``: P, M, Np, valid_share; D =
+    1) with a third of the rows valid and with none, for sum, min and max;
+    then small cases: D = 1 to 4, M = 1, below one tile and ragged, runs
+    across tiles (every row at one of 3 slots), a run over 586 tiles
+    (past the look-back's 128-tile window), valid rows at slots below 0,
+    at Np and past it (dropped), every row valid and none, +-inf and NaN
+    payloads for min and max."""
+    inbox = inbox or GENOME_INBOX
+    P_, M, Np = inbox["P"], inbox["M"], inbox["Np"]
+    err = 0.0
+    for op in ("sum", "min", "max"):
+        for share in (inbox["valid_share"], 0.0):
+            big = sort_fold_stream(P_, M, Np, 1, device, seed=7,
+                                   valid_share=share)
+            err = max(err, check_sort_fold(*big, Np, op,
+                                           f"genome inbox, {share:.3f} valid"))
+            del big
+            free(device)
+        for D in (1, 2, 3, 4):
+            for (P_s, M_s, Np_s, share, slots) in (
+                    (1, 1, 5, 1.0, (0, 0)), (3, 300, 40, 0.9, (0, 0)),
+                    (4, 1023, 40, 0.7, (0, 0)),
+                    (4, 100_003, 20_000, 0.6, (-50, 20_100)),
+                    (2, 5_000, 1_000, 1.0, (0, 3)),
+                    (3, 4_096, 500, 0.0, (0, 0))):
+                err = max(err, check_sort_fold(
+                    *sort_fold_stream(P_s, M_s, Np_s, D, device,
+                                      seed=D + M_s, valid_share=share,
+                                      slots=slots, nonfinite=op != "sum"),
+                    Np_s, op, f"D={D} slots {slots} share {share}"))
+        err = max(err, check_sort_fold(
+            *sort_fold_stream(2, 400_000, 1_000, 1, device, seed=3,
+                              valid_share=0.5, run=300_000),
+            1_000, op, "a run over 586 tiles"))
+    return err
+
+
+def sort_fold_timing(launches: int, inbox=None) -> dict:
+    """The sort group-by's fold at the genome cell's inbox (after the
+    sort): the kernel and the plain chain (``groupby.scan_fold_dense``:
+    the Hillis-Steele network, scatters through a sink slot) with a third
+    of the rows valid and with none, sum over D = 1; the kernel equal to
+    its plain version bit for bit on each. Bound: 9 B a valid row (id,
+    payload, valid read), one id a tile of the invalid tail, 5 B a slot
+    (dense and has written)."""
+    import torch
+    from repro_torch.core.groupby import scan_fold_dense
+    from repro_torch.kernels.sort_fold_dense import sort_fold_dense_cuda
+    inbox = inbox or GENOME_INBOX
+    P_, M, Np = inbox["P"], inbox["M"], inbox["Np"]
+    res = {}
+    for kind, share in (("mixed", inbox["valid_share"]), ("invalid", 0.0)):
+        ks, ps, vs = sort_fold_stream(P_, M, Np, 1, "cuda", seed=8,
+                                      valid_share=share)
+        err = check_sort_fold(ks, ps, vs, Np, "sum", f"genome {kind}")
+        rows = int(vs.sum())
+        tiles = P_ * -(-M // 512) - -(-rows // 512)
+        nbytes = rows * (4 + 4 + 1) + tiles * 4 + P_ * Np * (4 + 1)
+        res[kind] = dict(
+            ms=time_ms(lambda: sort_fold_dense_cuda(ks, ps, vs, Np, "sum")),
+            plain_ms=time_ms(lambda: scan_fold_dense(ks, ps, vs, Np,
+                                                       torch.add, 0.0),
+                             reps=5),
+            bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, valid_rows=rows,
+            max_abs_err=err)
+        del ks, ps, vs
+        free("cuda")
+    return dict(name="sort_fold_dense", route="cuda", source=SORT_FOLD_SRC,
+                replaces=SORT_FOLD_REPLACES, launches=launches,
+                **res["mixed"], bound_by="bytes",
+                all_invalid=res["invalid"], shape=dict(P=P_, M=M, Np=Np, D=1))
+
+
 # ------------------------------------------------------------- main
 
 def run_main_path(edges, n, device, stats_out: dict):
@@ -854,6 +996,7 @@ def run_main_path(edges, n, device, stats_out: dict):
         launches = {k: c.launches - before[k] for k, c in COUNTERS.items()}
         need_launches(name, dict(launches=launches), ("scatter_combine",),
                       device)
+        need_no_launches(name, dict(launches=launches), ("sort_fold_dense",))
         stats_out[name] = dict(
             supersteps=res.supersteps, run_s=time.perf_counter() - t0,
             superstep_median_s=statistics.median(walls),
@@ -1164,6 +1307,14 @@ def need_launches(what: str, stats: dict, names, device):
             raise AssertionError(f"kernel {k} never launched on {what}")
 
 
+def need_no_launches(what: str, stats: dict, names):
+    """The kernels that ``what``'s plan never calls for."""
+    for k in names:
+        if stats["launches"][k] != 0:
+            raise AssertionError(f"kernel {k} launched on {what}, whose "
+                                 "plan does not call for it")
+
+
 def kcore_reference(edges: np.ndarray, n: int, k: int) -> np.ndarray:
     """Synchronous peeling to a fixed point over the symmetric multigraph
     of ``edges`` (each edge both ways, multiplicities kept): alive &=
@@ -1389,7 +1540,7 @@ def mutations_and_programs(edges, n, hops, path_merge_child=None, *,
     chain = chain_graph(nc)
     pm = PathMerge(rounds=16)
     res_g, st = drive(pm, chain, nc, 2, device)
-    need_launches("PathMerge", st, ("csr_spmv",), device)
+    need_launches("PathMerge", st, ("csr_spmv", "sort_fold_dense"), device)
     if path_merge_child is not None:
         cpu_vert, cpu_steps, cpu_s, waited = path_merge_child.result()
     else:
@@ -2575,7 +2726,7 @@ DRYRUN_SCALE = "paper-large"
 # each example (examples/*_torch.py) and the kernels its run must launch
 EXAMPLES = {"quickstart": ("segment_combine",),
             "pagerank_webmap": GRAPH_KERNELS,
-            "path_merge_genomix": GRAPH_KERNELS}
+            "path_merge_genomix": GRAPH_KERNELS + ("sort_fold_dense",)}
 
 
 def start_dryruns(out_dir) -> dict:
@@ -4486,6 +4637,8 @@ def card_phases(args, name: str, child) -> int:
     torch.cuda.synchronize()
     scatter_err = scatter_parity("cuda")
     torch.cuda.synchronize()
+    sort_fold_err = sort_fold_parity("cuda")
+    torch.cuda.synchronize()
     flash_err = flash_parity()
     torch.cuda.synchronize()
     gmm_err = gmm_parity()
@@ -4494,7 +4647,8 @@ def card_phases(args, name: str, child) -> int:
     gmm_grad_err = gmm_grad_parity()
     log(f"kernel parity: fold bit-exact (max abs err {fold_err}), gather "
         f"exact (max abs err {gather_err}), scatter_combine (max abs err "
-        f"{scatter_err}), flash_attention (max abs err "
+        f"{scatter_err}), sort_fold_dense bit-exact (max abs err "
+        f"{sort_fold_err}), flash_attention (max abs err "
         f"{flash_err}), moe_gmm (max abs err {gmm_err}); gradients: "
         f"flash_attention (max abs err {flash_grad_err}), moe_gmm (max abs "
         f"err {gmm_grad_err}) in {time.perf_counter() - t:.1f} s")
@@ -4586,6 +4740,12 @@ def card_phases(args, name: str, child) -> int:
         f"and its references {small_s:.1f} s); launches by path: "
         + json.dumps({k: v["launches"] for k, v in phase10.items()
                       if "launches" in v}))
+    # the sort group-by's fold at the genome cell's inbox (5, continued),
+    # with the launches of its main path, phase 10's PathMerge
+    kernels.append(sort_fold_timing(
+        phase10["path_merge"]["launches"]["sort_fold_dense"]))
+    log(f"sort_fold_dense timing: {json.dumps(kernels[-1])}")
+    torch.cuda.empty_cache()
 
     # 11. checkpoints and recovery, at graph500-20 (the snapshots' zlib
     # time at -22 took a quarter of the script)
@@ -4649,6 +4809,11 @@ def card_phases(args, name: str, child) -> int:
         if k["name"] in GRAPH_KERNELS:
             k["launches_by_path"] = {p: counts[k["name"]]
                                      for p, counts in by_path.items()}
+        if k["name"] == "sort_fold_dense":
+            k["launches_by_path"] = {
+                p: v["launches"][k["name"]] for p, v in phase10.items()
+                if "launches" in v} | {
+                p: counts[k["name"]] for p, counts in by_path.items()}
     del edges, values, small, big
     torch.cuda.empty_cache()
 

@@ -9,7 +9,9 @@ leading partition axis P.
                  the m-to-n partitioning MERGING connector).
 
 The scatter group-by runs through ``kernels/backend.py``: the
-scatter_combine kernel on CUDA tensors, its plain chain on CPU tensors.
+scatter_combine kernel on CUDA tensors, its plain chain on CPU tensors;
+so does the sort group-by's fold of a named monoid (the sort_fold_dense
+kernel on CUDA tensors).
 Elsewhere a dropped scatter (``mode="drop"`` in the reference) becomes a
 scatter into one extra sink row that is sliced off afterwards. Float
 sums are taken in another order than the reference's scatter-add and
@@ -136,29 +138,40 @@ def sort_combine(slot, payload, valid, combine: Callable):
     return ks, folded, _lasts(ks) & vs
 
 
+def scan_fold_dense(ks, ps, vs, Np: int, fn, ident):
+    """The plain fold of ``_sort_rows``' streams into dense slots: the
+    Hillis-Steele scan over every row, then the runs' last rows scattered
+    into their slots and everything else into a sink slot Np that is
+    sliced off."""
+    P, _, D = ps.shape
+    folded = segmented_fold(_starts(ks), ps, fn)
+    is_last = _lasts(ks) & vs
+    tgt = torch.where(is_last & (ks < Np), ks, Np)           # Np = sink
+    dense = torch.empty((P, Np + 1, D), dtype=ps.dtype, device=ps.device)
+    dense[:] = torch.as_tensor(ident, dtype=ps.dtype, device=ps.device)
+    dense.scatter_(1, _rows(tgt, D), folded)
+    has = torch.zeros((P, Np + 1), dtype=torch.bool, device=ps.device)
+    has.scatter_(1, tgt.long(), is_last)
+    return dense[:, :Np], has[:, :Np]
+
+
 def sort_combine_dense(slot, payload, valid, Np: int, op):
     """Sort group-by materialized to dense slots (full-outer join input).
     ``op`` is a monoid name or a custom ``(combine, identity)`` pair:
     combine is elementwise over (..., D) rows, identity a (D,) tensor.
     Two spans: ``superstep.groupby.sort`` (the argsort and its gathers)
-    and ``superstep.groupby.fold`` (the fold and the dense scatters)."""
+    and ``superstep.groupby.fold`` (the fold and the dense write). On
+    CUDA tensors a monoid name folds in the sort_fold_dense kernel; CPU
+    and meta tensors, and a custom UDF (Python, which no kernel can run)
+    on any device, take the plain chain (``scan_fold_dense``)."""
     fn, ident = MONOIDS[op] if isinstance(op, str) else op
-    P, M, D = payload.shape
     with trace.annotate("superstep.groupby.sort", "compute"):
         ks, ps, vs = _sort_rows(slot, payload, valid)
     with trace.annotate("superstep.groupby.fold", "compute"):
-        folded = segmented_fold(_starts(ks), ps, fn)
-        is_last = _lasts(ks) & vs
-        tgt = torch.where(is_last & (ks < Np), ks, Np)       # Np = sink
-        dense = torch.empty((P, Np + 1, D), dtype=payload.dtype,
-                            device=payload.device)
-        dense[:] = torch.as_tensor(ident, dtype=payload.dtype,
-                                   device=payload.device)
-        dense.scatter_(1, _rows(tgt, D), folded)
-        has = torch.zeros((P, Np + 1), dtype=torch.bool,
-                          device=payload.device)
-        has.scatter_(1, tgt.long(), is_last)
-        return dense[:, :Np], has[:, :Np]
+        if isinstance(op, str) and \
+                kbackend.resolve("auto", payload.device) == "cuda":
+            return kbackend.sorted_fold_dense(ks, ps, vs, Np, op)
+        return scan_fold_dense(ks, ps, vs, Np, fn, ident)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ path.
 There is no fallback from one to the other and no override from the
 environment. The rest is the layer the superstep calls: the
 partition-flattened edge gather, the batched blocked segmented fold and
-the receiver's scatter into dense slots.
+the receiver's scatter and sorted-run folds into dense slots.
 Only the innermost function depends on the device, so a CPU run walks
 the control flow of a CUDA run. ``plan_edge_layout`` is the port's copy
 of the reference's host layout for its row-blocked gather; no superstep
@@ -29,6 +29,8 @@ from repro_torch.kernels.scatter_combine.scatter_combine import \
     scatter_combine
 from repro_torch.kernels.segment_combine.segment_combine import \
     segment_combine
+from repro_torch.kernels.sort_fold_dense.sort_fold_dense import \
+    sort_fold_dense
 
 # Block sizes: GATHER_BLOCK_M / GATHER_BLOCK_R are the reference
 # layout's tile and row block (plan_edge_layout), COMBINE_BLOCK_M the
@@ -114,3 +116,18 @@ def scatter_fold_dense(slot: torch.Tensor, payload: torch.Tensor,
     invalid rows, and valid ones whose slot lies outside [0, Np), write
     nothing; on CPU and meta tensors the plain scatter chain."""
     return scatter_combine(slot, payload, valid, Np, op)
+
+
+def sorted_fold_dense(keys: torch.Tensor, payload: torch.Tensor,
+                      valid: torch.Tensor, Np: int, op: str):
+    """The receiver's sort group-by of a named monoid (D1), after its
+    sort: fold each run of the P key-sorted streams into dense slot
+    ``key`` of its partition. keys: (P, M) int32, each row ascending with
+    its invalid rows keyed int32 max at the tail; payload: (P, M, D);
+    valid: (P, M). Returns (dense (P, Np, D), the identity where no valid
+    row arrived; has (P, Np)); keys outside [0, Np) are dropped. On CUDA
+    tensors one kernel call (a fill and one pass with the fold's
+    look-back, in the blocked schedule's brackets), in which only the
+    last row of each kept run writes and the dropped tail is not read
+    past one id a tile; on CPU tensors its plain replay."""
+    return sort_fold_dense(keys, payload, valid, Np, op)

@@ -43,7 +43,8 @@ class _Scratch:
     invalid tail. Zeroed once when allocated; every launch then takes a
     new epoch (words of older launches never match it) and the ticket's
     next range, so no launch clears anything. Launches that share it run
-    in order on its stream."""
+    in order on its stream; the sort group-by's fold (``sort_fold_dense``)
+    takes the same scratch."""
 
     def __init__(self, device, n_words: int):
         self.n_words = n_words

@@ -203,6 +203,25 @@ def test_phase_2_scatter_parity_on_the_cpu():
                          ("scatter_combine",), "cuda")
 
 
+def test_phase_2_sort_fold_parity_on_the_cpu():
+    """Phase 2's sort group-by fold parity walks its cases at a small inbox
+    (P = 4, M = 20,000, Np = 5000; the plain version on both sides); the
+    card's PathMerge run of phase 10 needs a sort_fold_dense launch, which
+    the CPU path never makes, and phase 3's PageRank none."""
+    assert cs.sort_fold_parity(
+        "cpu", dict(P=4, M=20_000, Np=5000, valid_share=1 / 3)) == 0.0
+    cs.need_launches("PathMerge", {"launches": {"sort_fold_dense": 0}},
+                     ("sort_fold_dense",), "cpu")
+    with pytest.raises(AssertionError, match="sort_fold_dense"):
+        cs.need_launches("PathMerge", {"launches": {"sort_fold_dense": 0}},
+                         ("sort_fold_dense",), "cuda")
+    cs.need_no_launches("pagerank", {"launches": {"sort_fold_dense": 0}},
+                        ("sort_fold_dense",))
+    with pytest.raises(AssertionError, match="sort_fold_dense"):
+        cs.need_no_launches("pagerank", {"launches": {"sort_fold_dense": 9}},
+                            ("sort_fold_dense",))
+
+
 def test_phases_20_and_21_on_the_cpu():
     """Phases 20-21 at reduced size on the CPU: the trainer (4 steps of
     the reduced qwen2-moe, sort dispatch), the float32 step against the

@@ -151,6 +151,118 @@ def test_sort_combine_dense(op):
     _same(got[1], want[1])
 
 
+def _sort_fold_case(case: str, seed: int):
+    """Inboxes for the sort group-by's fold: P = 4 streams of 1500 rows, a
+    third valid, slots repeated; D = 1 to 4; no row valid and every row
+    valid; runs across the 512-row tiles (every row at one of 3 slots); a
+    run of 70,000 rows (137 tiles, past the look-back's 128-tile window);
+    valid rows at slot Np and past it (dropped); one stream all tail;
+    integer-valued payloads (sums exact in any order)."""
+    rng = np.random.default_rng(seed)
+    M_, d, n_keys, share = 1500, 2, NP, 1 / 3
+    if case in ("d1", "d2", "d3", "d4"):
+        d = int(case[1])
+    if case == "cross_tile":
+        M_, n_keys, share = 3000, 3, 0.9
+    if case == "long_run":
+        M_ = 72_000
+    slot = rng.integers(0, n_keys + 3 * (case == "key_ge_np"),
+                        (4, M_)).astype(np.int32)
+    valid = rng.random((4, M_)) < {"none_valid": 0.0,
+                                   "all_valid": 1.0}.get(case, share)
+    pay = rng.random((4, M_, d)).astype(np.float32)
+    if case == "long_run":
+        slot[0, :70_000], valid[0, :70_000] = 7, True
+    if case == "key_ge_np":
+        slot[:, ::11], valid[:, ::11] = 2 ** 31 - 2, True
+    if case == "all_tail":
+        valid[2] = False
+    if case == "ints":
+        pay = rng.integers(0, 5, (4, M_, d)).astype(np.float32)
+    return slot, pay, valid
+
+
+def _blocked_dense(ks, ps, vs, Np, op):
+    """The kernel's schedule written out: segment_combine_blocked on each
+    stream, then each kept run's last row into its slot."""
+    from repro_torch.kernels.segment_combine import segment_combine_blocked
+    from repro_torch.kernels.segment_combine.ref import IDENT
+    dense = torch.full((ps.shape[0], Np, ps.shape[2]), IDENT[op])
+    has = torch.zeros((ps.shape[0], Np), dtype=torch.bool)
+    for p in range(ps.shape[0]):
+        folded, is_last = segment_combine_blocked(ks[p], ps[p], vs[p], op)
+        last = is_last & (ks[p] < Np)
+        dense[p, ks[p][last].long()] = folded[last]
+        has[p, ks[p][last].long()] = True
+    return dense, has
+
+
+SORT_FOLD_CASES = [
+    pytest.param(op, case, id=f"{op}-{case}")
+    for case in ("d1", "d2", "d3", "d4", "none_valid", "all_valid",
+                 "cross_tile", "long_run", "key_ge_np", "all_tail", "ints")
+    for op in ("sum", "min", "max")]
+
+
+@pytest.mark.parametrize("op,case", SORT_FOLD_CASES)
+def test_sort_fold_dense_plain_version(op, case):
+    """The sort_fold_dense kernel's plain version (its wrapper on CPU
+    tensors) on ``_sort_rows``' streams: bit for bit the blocked schedule
+    the kernel runs; against the port's plain chain and the JAX package's
+    sort_combine_dense, has, min and max exactly, sums to rounding
+    (exactly where the payloads are integers)."""
+    from repro_torch.kernels.sort_fold_dense import sort_fold_dense
+    slot, pay, valid = _sort_fold_case(case, 12)
+    ks, ps, vs = tg._sort_rows(*_t(slot, pay, valid))
+    got = sort_fold_dense(ks, ps, vs, NP, op)
+    want = _blocked_dense(ks, ps, vs, NP, op)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    float_sum = op == "sum" and case != "ints"
+    plain = tg.scan_fold_dense(ks, ps, vs, NP, *tg.MONOIDS[op])
+    _same(got[0], plain[0], float_sum=float_sum)
+    _same(got[1], plain[1])
+    fn, ident = jg.MONOIDS[op]
+    jx = jax.jit(jax.vmap(lambda s, p, v: jg.sort_combine_dense(
+        s, p, v, NP, fn, jnp.full((pay.shape[2],), ident, jnp.float32))))(
+            *_j(slot, pay, valid))
+    _same(got[0], jx[0], float_sum=float_sum)
+    _same(got[1], jx[1])
+    if case in ("none_valid", "all_tail"):
+        assert not got[1][2].any()
+
+
+def test_sort_combine_dense_dispatch(monkeypatch):
+    """A monoid name on CUDA tensors folds in the sort_fold_dense kernel
+    (its backend entry gets ``_sort_rows``' streams); CPU tensors, and a
+    custom UDF on any device, take the plain chain. The kernel's wrapper
+    refuses CPU tensors."""
+    from repro_torch.kernels.sort_fold_dense import sort_fold_dense_cuda
+    slot, pay, valid = _t(*_stream(2))
+    calls = []
+
+    def kernel(ks, ps, vs, Np, op):
+        calls.append((ks, ps, vs, Np, op))
+        return "kernel"
+
+    monkeypatch.setattr(tg.kbackend, "sorted_fold_dense", kernel)
+    plain = tg.sort_combine_dense(slot, pay, valid, NP, "min")
+    assert not calls and isinstance(plain[0], torch.Tensor)
+    monkeypatch.setattr(tg.kbackend, "resolve", lambda impl, dev: "cuda")
+    assert tg.sort_combine_dense(slot, pay, valid, NP, "min") == "kernel"
+    (ks, ps, vs, Np, op), = calls
+    assert (Np, op) == (NP, "min")
+    for got, want in zip((ks, ps, vs), tg._sort_rows(slot, pay, valid)):
+        assert torch.equal(got, want)
+    udf = tg.sort_combine_dense(slot, pay, valid, NP,
+                                (torch.minimum, torch.full((D,), np.inf)))
+    assert len(calls) == 1
+    _same(udf[0], plain[0])
+    _same(udf[1], plain[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        sort_fold_dense_cuda(ks, ps, vs, NP, "sum")
+
+
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
 def test_sort_combine(op):
     slot, pay, valid = _stream(3)

@@ -137,6 +137,7 @@ def test_kernels_are_cuda_sources_in_the_port():
     for name, replaces in (("segment_combine", "segment_combine_pallas"),
                            ("csr_spmv", "edge_gather_pallas"),
                            ("scatter_combine", "scatter_combine_dense"),
+                           ("sort_fold_dense", "sort_combine_dense"),
                            ("flash_attention", "flash_attention_pallas"),
                            ("moe_gmm", "grouped_matmul_pallas")):
         src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
