@@ -29,15 +29,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.plan import DEFAULT_PLAN, FRONTIER_FLOOR, \
-    PhysicalPlan, bucket_capacity
+from repro_torch.core.plan import FRONTIER_FLOOR, PhysicalPlan, \
+    bucket_capacity
 from repro_torch.core.program import VertexProgram
 from repro_torch.core.relations import (OVF_BUCKET, OVF_EDGE, OVF_FRONTIER,
                                         OVF_MUTATION, GlobalState, MsgRel,
                                         VertexRel, empty_msgs, init_gs,
                                         out_degrees)
 from repro_torch.core.superstep import EngineConfig, make_superstep
-from repro_torch.kernels import backend as kbackend
 from repro_torch.obs import explain, memwatch, trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.planner.stats import StatsCollector
@@ -65,24 +64,19 @@ class RunResult:
 
 
 def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
-                  kernel_impl: Optional[str] = None, auto_config=None,
-                  auto_space=None, graph_stats=None, device=None,
-                  machine=None, obs0=None):
+                  auto_config=None, auto_space=None, graph_stats=None,
+                  device=None, machine=None, obs0=None):
     """-> (plan, AdaptiveController | None). A PhysicalPlan passes
-    through (with ``kernel_impl`` applied); plan="auto" is chosen by the
-    cost model for superstep 0, with ``machine`` or else the machine
-    model of ``device`` (default: the graph's device), and, when
-    ``adaptive``, comes with the controller that re-chooses mid-run. A
-    ``kernel_impl`` override rides on the base plan, so the initial
-    choice and every switch carry it. ``graph_stats`` stands in for the
-    vertex scan (the out-of-core resume holds no VertexRel); ``obs0``
-    seeds superstep 0's observation (the sharded driver's sharded=True
-    and n_workers, so the first pick prices the network axis).
-    ``AdaptiveConfig(calibrate=True)`` refits the model's constants
-    first."""
+    through unchanged; plan="auto" is chosen by the cost model for
+    superstep 0, with ``machine`` or else the machine model of
+    ``device`` (default: the graph's device), and, when ``adaptive``,
+    comes with the controller that re-chooses mid-run. ``graph_stats``
+    stands in for the vertex scan (the out-of-core resume holds no
+    VertexRel); ``obs0`` seeds superstep 0's observation (the sharded
+    driver's sharded=True and n_workers, so the first pick prices the
+    network axis). ``AdaptiveConfig(calibrate=True)`` refits the model's
+    constants first."""
     if isinstance(plan, PhysicalPlan):
-        if kernel_impl is not None:
-            plan = dataclasses.replace(plan, kernel_impl=kernel_impl)
         return plan, None
     if plan != "auto":
         raise ValueError(f"plan must be a PhysicalPlan or 'auto', "
@@ -97,25 +91,9 @@ def _resolve_plan(vert, program, plan: PlanArg, *, adaptive: bool,
     g = graph_stats or GraphStats.from_vertex(vert, program)
     if config.calibrate:
         machine = calibrate_machine(program, g, machine)
-    base = (dataclasses.replace(DEFAULT_PLAN, kernel_impl=kernel_impl)
-            if kernel_impl is not None else None)
-    return resolve_auto_plan(vert, program, base=base, adaptive=adaptive,
+    return resolve_auto_plan(vert, program, adaptive=adaptive,
                              config=config, machine=machine,
                              space_kw=auto_space, g=g, obs0=obs0)
-
-
-def plan_gather_layout(plan: PhysicalPlan, vert: VertexRel):
-    """The reference's host layout for its row-blocked csr_spmv gather,
-    on the graph's device, for full-outer plans, else None (the JAX
-    driver's layout, kept as the port's copy of it). The port's gather
-    reads no layout, so neither driver calls this."""
-    if plan.join != "full_outer":
-        return None
-    perm, tile_row = kbackend.plan_edge_layout(vert.edge_src.cpu().numpy(),
-                                               vert.capacity)
-    dev = vert.vid.device
-    return (torch.from_numpy(perm).to(dev),
-            torch.from_numpy(tile_row).to(dev))
 
 
 def default_engine_config(vert: VertexRel, program: VertexProgram,
@@ -183,14 +161,12 @@ def prepare_run(vert, program, plan, ec):
 def run_jit(vert: VertexRel, program: VertexProgram,
             plan: PlanArg = PhysicalPlan(), *,
             max_supersteps: int = 50,
-            ec: Optional[EngineConfig] = None,
-            kernel_impl: Optional[str] = None) -> RunResult:
+            ec: Optional[EngineConfig] = None) -> RunResult:
     """Fixed-capacity loop: stops at halt, at max_supersteps, or at the
     first overflow, which raises (run_host grows capacities instead).
     plan="auto" resolves once, up front (no mid-run switching)."""
     t0 = time.time()
-    plan, _ = _resolve_plan(vert, program, plan, adaptive=False,
-                            kernel_impl=kernel_impl)
+    plan, _ = _resolve_plan(vert, program, plan, adaptive=False)
     ec, v, m, g = prepare_run(vert, program, plan, ec)
     step = make_superstep(program, plan, ec)
     for _ in range(max_supersteps):
@@ -219,8 +195,7 @@ def run_host(vert: VertexRel, program: VertexProgram,
              on_superstep: Optional[Callable] = None,
              failure_injector: Optional[Callable] = None,
              auto_config=None,
-             auto_space: Optional[dict] = None,
-             kernel_impl: Optional[str] = None) -> RunResult:
+             auto_space: Optional[dict] = None) -> RunResult:
     """Superstep loop with statistics, capacity growth (grow only the
     overflowed capacities x2 and redo the superstep from the retained
     state), the left-outer frontier refit and checkpoints (every
@@ -259,8 +234,7 @@ def run_host(vert: VertexRel, program: VertexProgram,
                               and healthy < P0 else None),
                 recover=False, on_superstep=on_superstep,
                 failure_injector=failure_injector,
-                auto_config=auto_config, auto_space=auto_space,
-                kernel_impl=kernel_impl)
+                auto_config=auto_config, auto_space=auto_space)
 
         def _pick(bad):
             if not checkpoint_dir:
@@ -276,12 +250,12 @@ def run_host(vert: VertexRel, program: VertexProgram,
         return _run_job(vert, program, plan, max_supersteps, ec,
                         checkpoint_every, checkpoint_dir, resume_from,
                         resume_parts, on_superstep, failure_injector,
-                        auto_config, auto_space, kernel_impl)
+                        auto_config, auto_space)
 
 
 def _run_job(vert, program, plan, max_supersteps, ec, checkpoint_every,
              checkpoint_dir, resume_from, resume_parts, on_superstep,
-             failure_injector, auto_config, auto_space, kernel_impl):
+             failure_injector, auto_config, auto_space):
     """One job of ``run_host`` (the call, or one attempt of a supervised
     run), inside its ``job`` span."""
     from repro_torch.runtime import faults
@@ -303,7 +277,6 @@ def _run_job(vert, program, plan, max_supersteps, ec, checkpoint_every,
                 vert, msg = repartition(vert, msg, resume_parts)
             i0 = int(gs.superstep)
         plan, controller = _resolve_plan(vert, program, plan, adaptive=True,
-                                         kernel_impl=kernel_impl,
                                          auto_config=auto_config,
                                          auto_space=auto_space)
         if explain.enabled():

@@ -168,8 +168,7 @@ def sort_combine_dense(slot, payload, valid, Np: int, op):
     with trace.annotate("superstep.groupby.sort", "compute"):
         ks, ps, vs = _sort_rows(slot, payload, valid)
     with trace.annotate("superstep.groupby.fold", "compute"):
-        if isinstance(op, str) and \
-                kbackend.resolve("auto", payload.device) == "cuda":
+        if isinstance(op, str) and payload.device.type == "cuda":
             return kbackend.sorted_fold_dense(ks, ps, vs, Np, op)
         return scan_fold_dense(ks, ps, vs, Np, fn, ident)
 

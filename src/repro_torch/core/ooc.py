@@ -107,7 +107,6 @@ from repro_torch.core.relations import _DTYPES as _TORCH_DTYPES
 from repro_torch.core.relations import (GlobalState, MsgRel, VertexRel,
                                         init_gs)
 from repro_torch.core.superstep import EngineConfig, make_superstep
-from repro_torch.kernels import backend as kbackend
 from repro_torch.obs import explain, memwatch, trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.storage import TieredStore
@@ -421,7 +420,6 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
                     ec: Optional[EngineConfig] = None,
                     auto_config=None,
                     auto_space: Optional[dict] = None,
-                    kernel_impl: Optional[str] = None,
                     stream: bool = True,
                     prefetch_depth: int = 2,
                     barrier_free: bool = True,
@@ -447,8 +445,7 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
 
     plan="auto" picks the plan from the cost model (the machine model of
     ``device``) and re-picks it at superstep boundaries over the full
-    plan space, storage included. ``kernel_impl`` pins the kernel knob
-    and is checked against ``device`` (no fallback).
+    plan space, storage included.
 
     stream=True (default) keeps up to ``prefetch_depth`` super-partitions
     in flight; stream=False is the synchronous loop. barrier_free=True
@@ -491,7 +488,7 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
                 budget_partitions=budget_partitions,
                 max_supersteps=max_supersteps, ec=ec,
                 auto_config=auto_config, auto_space=auto_space,
-                kernel_impl=kernel_impl, stream=stream,
+                stream=stream,
                 prefetch_depth=prefetch_depth, barrier_free=barrier_free,
                 memory_budget_bytes=memory_budget_bytes,
                 disk_dir=disk_dir, eviction=eviction,
@@ -515,8 +512,6 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_out_of_core(device='cuda'): no CUDA device; "
                            "pass device='cpu' to run on the CPU")
-    if kernel_impl is not None:
-        kbackend.resolve(kernel_impl, device)
     sp = budget_partitions
     if checkpoint_every and not checkpoint_dir:
         raise ValueError("checkpoint_every needs a checkpoint_dir — "
@@ -580,12 +575,11 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
             i = 0
         saved_plan = None
         if ck_meta is not None and ck_meta.get("plan"):
-            saved_plan = PhysicalPlan(**ck_meta["plan"])
+            saved_plan = PhysicalPlan.from_dict(ck_meta["plan"])
         wanted_auto = plan == "auto"
         plan, controller = _resolve_plan(
             shape_vert if resume_from is None else None, program, plan,
-            adaptive=True, kernel_impl=kernel_impl,
-            auto_config=auto_config,
+            adaptive=True, auto_config=auto_config,
             auto_space=_OOC_AUTO_SPACE if auto_space is None
             else auto_space, graph_stats=graph_stats, device=device)
         if saved_plan is not None:
@@ -594,9 +588,6 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
                 # checkpoint (it produced the restored inbox's layout);
                 # the controller re-plans from live statistics as usual
                 plan = saved_plan
-                if kernel_impl is not None:
-                    plan = dataclasses.replace(plan,
-                                               kernel_impl=kernel_impl)
                 if controller is not None:
                     controller.plan = plan
             if (plan.connector == "partitioning_merging"
@@ -609,7 +600,6 @@ def run_out_of_core(vert: Optional[VertexRel], program: VertexProgram,
                         store.get_page((nm, 0, q)) for nm in _INBOX))
                     for nm, a in zip(_INBOX, triple):
                         store.put_page((nm, 0, q), a, immutable=True)
-        kbackend.resolve(plan.kernel_impl, device)
         if controller is not None and ck_meta is not None \
                 and ck_meta.get("controller"):
             # restore the hysteresis window/streak/cooldown, so a resume

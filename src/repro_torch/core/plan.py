@@ -9,19 +9,10 @@ connector:  partitioning (unsorted buckets) |
 sender_combine: pre-aggregate messages per destination on the sender.
 storage:    the out-of-core write-back policy; a label in memory.
 partition:  hash (vid % P) | range (vid // capacity).
-
-``kernel_impl`` picks the implementation of the two hot-path kernels
-(the D3 edge gather and the D7 sender fold). It is resolved against the
-device of the tensors a superstep is given (``kernels/backend.resolve``):
-
-  auto  the CUDA kernel on a CUDA tensor, the plain torch version on a
-        CPU tensor
-  cuda  the CUDA kernel; a CPU tensor raises
-  ref   the plain torch version; a CUDA tensor raises
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 # the documented name of every dimension (the reference's sets)
 JOINS = ("full_outer", "left_outer")
@@ -30,8 +21,6 @@ CONNECTORS = ("partitioning", "partitioning_merging")
 # the two write-back policies the planner's storage dimension ranges over
 STORAGES = ("inplace", "delta")
 PARTITIONS = ("hash", "range")
-
-KERNEL_IMPLS = ("auto", "ref", "cuda")
 
 
 @dataclass(frozen=True)
@@ -46,7 +35,6 @@ class PhysicalPlan:
     # left_outer: initial frontier capacity / Np (the host driver shrinks
     # it when the live set collapses)
     frontier_capacity: float = 1.0
-    kernel_impl: str = "auto"         # auto | ref | cuda
 
     def validate(self, combine_op: str):
         """Raise on a name outside its documented set (the superstep
@@ -65,6 +53,15 @@ class PhysicalPlan:
                 "scatter (hash) group-by needs a named monoid combine op; "
                 "use groupby='sort' for custom combine UDFs")
         return self
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PhysicalPlan":
+        """The plan a snapshot stored (``dataclasses.asdict``). The
+        reference's snapshots also store its kernel_impl, which the port
+        has no field for (the device picks the kernel): keys that name
+        no field are dropped."""
+        names = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
 
 DEFAULT_PLAN = PhysicalPlan()

@@ -1018,7 +1018,6 @@ def run_sharded(vert: VertexRel, program, plan: PlanArg = PhysicalPlan(),
                 max_supersteps: int = 50, ec=None,
                 on_superstep: Optional[Callable] = None,
                 auto_config=None, auto_space: Optional[dict] = None,
-                kernel_impl: Optional[str] = None,
                 budget_partitions: int = 0,
                 disk_dir: Optional[str] = None,
                 memory_budget_bytes: Optional[int] = None,
@@ -1077,9 +1076,8 @@ def run_sharded(vert: VertexRel, program, plan: PlanArg = PhysicalPlan(),
         machine = machine_for(device)
     kw = dict(max_supersteps=max_supersteps, ec=ec,
               on_superstep=on_superstep, auto_config=auto_config,
-              auto_space=auto_space, kernel_impl=kernel_impl,
-              budget_partitions=budget_partitions, disk_dir=disk_dir,
-              memory_budget_bytes=memory_budget_bytes,
+              auto_space=auto_space, budget_partitions=budget_partitions,
+              disk_dir=disk_dir, memory_budget_bytes=memory_budget_bytes,
               io_threads=io_threads, readahead_pages=readahead_pages,
               eviction=eviction, checkpoint_every=checkpoint_every,
               checkpoint_dir=checkpoint_dir, machine=machine)
@@ -1142,14 +1140,12 @@ def run_sharded(vert: VertexRel, program, plan: PlanArg = PhysicalPlan(),
 
 
 def _make_job(vert, program, plan, *, N, shared, resume_from, ec,
-              auto_config,
-              auto_space, kernel_impl, budget_partitions, machine,
+              auto_config, auto_space, budget_partitions, machine,
               max_supersteps, disk_dir, memory_budget_bytes, io_threads,
               readahead_pages, eviction, checkpoint_every, checkpoint_dir):
     """The caller-side half: resolve the plan with the whole graph in
     hand, and the job every rank gets (``blocks(w)``: rank w's
     partitions, see ``_block``)."""
-    from repro_torch.kernels import backend as kbackend
     from repro_torch.planner.cost import GraphStats, Observation
     from repro_torch.runtime import faults
     P = vert.num_partitions
@@ -1160,10 +1156,8 @@ def _make_job(vert, program, plan, *, N, shared, resume_from, ec,
     # "auto" resolves once in out-of-core mode (non-adaptive), as in the
     # reference: a switch would rebuild every round's step
     plan, controller = _resolve_plan(
-        vert, program, plan, adaptive=not ooc, kernel_impl=kernel_impl,
-        auto_config=auto_config, auto_space=auto_space, machine=machine,
-        obs0=obs0)
-    kbackend.resolve(plan.kernel_impl, vert.vid.device)
+        vert, program, plan, adaptive=not ooc, auto_config=auto_config,
+        auto_space=auto_space, machine=machine, obs0=obs0)
     g = controller.g if controller is not None else None
     if g is None and explain.enabled():
         g = GraphStats.from_vertex(vert, program)

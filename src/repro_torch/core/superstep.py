@@ -353,7 +353,6 @@ def make_superstep(program: VertexProgram, plan: PhysicalPlan,
         ``superstep.mutations`` its (2,) int32 device tensor of vertices
         deleted (D6) and re-created (D1's resurrect) in this superstep,
         summed over the ranks like the other tallies; None otherwise."""
-        kbackend.resolve(plan.kernel_impl, vert.vid.device)
         P, Np = vert.vid.shape
         dev = vert.vid.device
         i32 = lambda x: x.to(torch.int32)

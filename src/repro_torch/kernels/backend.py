@@ -1,30 +1,23 @@
-"""Kernel choice + the engine-facing kernel entry points.
+"""The engine-facing kernel entry points: the partition-flattened edge
+gather, the batched blocked segmented fold and the receiver's scatter
+and sorted-run folds into dense slots.
 
-``resolve`` checks the ``PhysicalPlan.kernel_impl`` knob (auto | ref |
-cuda) against the device of the tensors a superstep runs on: on a CUDA
-tensor "auto" and "cuda" mean the CUDA kernels and "ref" raises; on a CPU
-tensor "auto" and "ref" mean the plain torch versions and "cuda" raises;
-a ``meta`` tensor (shapes only, for the operator counter) takes the plain
-path.
-There is no fallback from one to the other and no override from the
-environment. The rest is the layer the superstep calls: the
-partition-flattened edge gather, the batched blocked segmented fold and
-the receiver's scatter and sorted-run folds into dense slots.
-Only the innermost function depends on the device, so a CPU run walks
-the control flow of a CUDA run. ``plan_edge_layout`` is the port's copy
-of the reference's host layout for its row-blocked gather; no superstep
-calls it.
+The device of the tensors chooses the implementation, and nothing else
+does: each kernel wrapper launches its CUDA kernel on CUDA tensors and
+runs its plain torch version on CPU tensors. The gather, the segmented
+fold and the scatter fold also take ``meta`` tensors (shapes only, the
+operator counter's probe supersteps) down the plain path; the sort
+group-by calls ``sorted_fold_dense`` on CUDA tensors only. Any other
+device raises in the wrapper (``no kernel for device ...``); there is
+no fallback from one path to the other and no override. Only the
+innermost function depends on the device, so a CPU run walks the
+control flow of a CUDA run.
 """
 from __future__ import annotations
 
-from typing import Tuple
-
-import numpy as np
 import torch
 
-from repro_torch.core.plan import KERNEL_IMPLS
 from repro_torch.kernels.csr_spmv.csr_spmv import edge_gather
-from repro_torch.kernels.csr_spmv.ops import plan_layout_fixed
 from repro_torch.kernels.scatter_combine.scatter_combine import \
     scatter_combine
 from repro_torch.kernels.segment_combine.segment_combine import \
@@ -32,47 +25,8 @@ from repro_torch.kernels.segment_combine.segment_combine import \
 from repro_torch.kernels.sort_fold_dense.sort_fold_dense import \
     sort_fold_dense
 
-# Block sizes: GATHER_BLOCK_M / GATHER_BLOCK_R are the reference
-# layout's tile and row block (plan_edge_layout), COMBINE_BLOCK_M the
-# fold's tile.
-GATHER_BLOCK_M = 512
-GATHER_BLOCK_R = 256
+# the blocked segmented fold's tile
 COMBINE_BLOCK_M = 512
-
-def resolve(impl: str, device) -> str:
-    """-> "cuda" or "ref" for tensors on ``device``; raises where the
-    knob and the device disagree."""
-    if impl not in KERNEL_IMPLS:
-        raise ValueError(
-            f"kernel_impl={impl!r}: expected one of {KERNEL_IMPLS}")
-    kind = torch.device(device).type
-    if kind == "cuda":
-        if impl == "ref":
-            raise ValueError("kernel_impl='ref' on CUDA tensors: the plain "
-                             "versions serve CPU tensors only")
-        return "cuda"
-    # meta tensors hold shapes without data: the operator counter's probe
-    # supersteps (launch/op_cost.py) walk the plain path
-    if kind in ("cpu", "meta"):
-        if impl == "cuda":
-            raise ValueError(f"kernel_impl='cuda' on {kind} tensors: load "
-                             "the graph with device='cuda'")
-        return "ref"
-    raise ValueError(f"no kernels for device {device}")
-
-
-def plan_edge_layout(edge_src, n_rows: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The reference's host-side gather layout for a (P, Ep) edge_src
-    block over (P, n_rows) value rows, the partitions flattened into ONE
-    (P*Ep,) edge stream over P*n_rows rows (the JAX engine's
-    ``plan_edge_layout``, element for element). The port's gather walks
-    the edges in their own order and reads no layout."""
-    edge_src = np.asarray(edge_src)
-    P, Ep = edge_src.shape
-    off = (np.arange(P, dtype=np.int64) * n_rows)[:, None]
-    flat = np.where(edge_src >= 0, edge_src + off, -1).reshape(-1)
-    return plan_layout_fixed(flat, P * n_rows, block_m=GATHER_BLOCK_M,
-                             block_r=GATHER_BLOCK_R)
 
 
 def edge_gather_values(values: torch.Tensor,

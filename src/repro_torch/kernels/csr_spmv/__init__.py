@@ -1,8 +1,5 @@
 from repro_torch.kernels.csr_spmv.csr_spmv import (counter, edge_gather,
                                                    edge_gather_cuda)
-from repro_torch.kernels.csr_spmv.ops import (layout_capacity, plan_layout,
-                                              plan_layout_fixed)
 from repro_torch.kernels.csr_spmv.ref import edge_gather_ref
 
-__all__ = ["counter", "edge_gather", "edge_gather_cuda", "edge_gather_ref",
-           "layout_capacity", "plan_layout", "plan_layout_fixed"]
+__all__ = ["counter", "edge_gather", "edge_gather_cuda", "edge_gather_ref"]

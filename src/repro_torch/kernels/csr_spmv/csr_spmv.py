@@ -4,9 +4,8 @@ On a CUDA tensor ``edge_gather`` launches the hand-written Hopper kernel
 (``kernels/csrc/csr_spmv.cu``), which walks the edges in their own order
 and needs no layout; on a CPU tensor it runs the plain gather
 (``ref.edge_gather_ref``). Both are exact for every float, inf and NaN
-included. ``counter.launches`` counts kernel launches. The host layout
-of the reference's row-blocked design (``ops.plan_layout*``) stays in
-``ops.py`` as the port's copy of it; no gather reads it.
+included. ``counter.launches`` counts kernel launches. The reference's
+row-blocked design and its host layout have no counterpart here.
 """
 from __future__ import annotations
 

@@ -46,7 +46,6 @@ import time
 from pathlib import Path
 from typing import Optional
 
-from repro_torch.core.plan import KERNEL_IMPLS
 from repro_torch.launch.mesh import fake_group
 
 ALGOS = ("pagerank", "sssp", "cc")
@@ -110,12 +109,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sender-combine", type=int, default=1)
     ap.add_argument("--partition", default="hash",
                     choices=["hash", "range"])
-    ap.add_argument("--kernel-impl", default="auto",
-                    choices=list(KERNEL_IMPLS),
-                    help="the hot-path kernels (kernels/backend.py): "
-                         "auto = the CUDA kernels on the card and the "
-                         "plain torch versions on the CPU; cuda or ref "
-                         "insist on one and raise on the other device")
     ap.add_argument("--auto-plan", action="store_true",
                     help="let the cost-based planner pick (and mid-run "
                          "re-pick) the plan, with the machine model of "
@@ -244,7 +237,7 @@ def plan_of(args: argparse.Namespace):
     return "auto" if args.auto_plan else PhysicalPlan(
         join=args.join, groupby=args.groupby, connector=args.connector,
         sender_combine=bool(args.sender_combine),
-        partition=args.partition, kernel_impl=args.kernel_impl)
+        partition=args.partition)
 
 
 def _largest_half_divisor(n: int) -> int:
@@ -279,10 +272,6 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None,
     ft_kw = dict(checkpoint_every=args.checkpoint_every,
                  checkpoint_dir=args.checkpoint_dir,
                  recover=args.recover, max_retries=args.max_retries)
-    # pin the kernel dispatch inside the auto-planner's search space (a
-    # concrete plan already carries it from the knob)
-    kimp = (args.kernel_impl if args.auto_plan
-            and args.kernel_impl != "auto" else None)
     if args.trace:
         trace.start()
     if args.report or args.explain:
@@ -296,15 +285,15 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None,
             print(progress_line(rec, plan_tag, n_vertices=n), flush=True)
     try:
         if sharded(args):
-            res, mode = _run_sharded(args, vert, program, plan, kimp, show,
-                                     ft_kw, pool)
+            res, mode = _run_sharded(args, vert, program, plan, show, ft_kw,
+                                     pool)
         elif args.ooc:
             from repro_torch.core.ooc import run_out_of_core
             budget = args.budget_partitions or \
                 _largest_half_divisor(args.parts)
             res = run_out_of_core(
                 vert, program, plan, budget_partitions=budget,
-                max_supersteps=40, kernel_impl=kimp, stream=args.stream,
+                max_supersteps=40, stream=args.stream,
                 barrier_free=args.barrier_free,
                 memory_budget_bytes=args.memory_budget_bytes,
                 disk_dir=args.disk_dir, eviction=args.eviction,
@@ -322,7 +311,7 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None,
             host_cb = ((lambda i, v, m, g, rec: show(i, rec))
                        if show is not None else None)
             res = run_host(vert, program, plan, max_supersteps=40,
-                           kernel_impl=kimp, on_superstep=host_cb, **ft_kw)
+                           on_superstep=host_cb, **ft_kw)
             mode = "in-memory"
     except BaseException:
         # leave no recorder running behind a failed job
@@ -426,7 +415,7 @@ def run(args: argparse.Namespace, graph: Optional[tuple] = None,
     return res, rep
 
 
-def _run_sharded(args, vert, program, plan, kimp, show, ft_kw, pool):
+def _run_sharded(args, vert, program, plan, show, ft_kw, pool):
     """The sharded modes: run_sharded over --devices ranks (in memory, or
     --ooc with the reference's per-worker budget rule). -> (RunResult,
     mode label)."""
@@ -453,8 +442,7 @@ def _run_sharded(args, vert, program, plan, kimp, show, ft_kw, pool):
         # without checkpoints would only restart from scratch
         ft_kw = dict(recover=args.recover, max_retries=args.max_retries)
     res = run_sharded(vert, program, plan, mesh=mesh, max_supersteps=40,
-                      kernel_impl=kimp, on_superstep=show, pool=pool,
-                      **ooc_kw, **ft_kw)
+                      on_superstep=show, pool=pool, **ooc_kw, **ft_kw)
     return res, f"sharded x{n_dev} devices{tier}"
 
 

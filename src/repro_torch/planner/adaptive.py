@@ -101,7 +101,7 @@ class AdaptiveController:
         if not state:
             return
         want = state.get("want")
-        self._want = PhysicalPlan(**want) if want else None
+        self._want = PhysicalPlan.from_dict(want) if want else None
         self._streak = int(state.get("streak", 0))
         self._last_switch = int(state.get("last_switch", -10 ** 9))
         self._last_recal = int(state.get("last_recal", -10 ** 9))

@@ -337,8 +337,9 @@ def estimate(plan: PhysicalPlan, g: GraphStats, obs: Observation,
 
     The kernel path is the machine's: a machine with ``cuda_kernels``
     runs the gather (full-outer plans) and the fold (sender combine)
-    through the CUDA kernels, unless the plan pins ``kernel_impl="ref"``
-    (the calibration probes do: they measure the plain superstep)."""
+    through the CUDA kernels, one without runs the plain versions (the
+    calibration prices its probes so: they measure the plain
+    superstep)."""
     P, Np, Ep = g.n_partitions, g.vertex_capacity, g.edge_capacity
     D, V = g.msg_dims, g.value_dims
     kc, ks = machine.k_compute, machine.k_scatter
@@ -349,7 +350,7 @@ def estimate(plan: PhysicalPlan, g: GraphStats, obs: Observation,
     M = P * cap                       # received message capacity
     msg_w = (1 + D) * WORD + 1        # dst + payload + valid per slot
 
-    kern = machine.cuda_kernels and plan.kernel_impl != "ref"
+    kern = machine.cuda_kernels
     kern_gather = kern and plan.join == "full_outer"
     # (the engine folds only named monoids through the kernel; the model
     # cannot see combine_op here, so a custom combine is mildly mispriced
@@ -541,26 +542,27 @@ def _fit_constants(program, g: GraphStats, machine: MachineModel):
     sane ranges; a degenerate system keeps the defaults."""
     import numpy as np
     obs = Observation(frontier_density=1.0)
-    # probes pin kernel_impl="ref": op_calibrate measures the plain
-    # superstep, so the fit must price the same path it measures (the
-    # kernel path's constants ride along unfitted)
     if program.combine_op == "custom":
         probes = [PhysicalPlan(join="full_outer", groupby="sort",
                                connector="partitioning",
-                               sender_combine=False, kernel_impl="ref"),
+                               sender_combine=False),
                   PhysicalPlan(join="full_outer", groupby="sort",
                                connector="partitioning",
-                               sender_combine=True, kernel_impl="ref")]
+                               sender_combine=True)]
     else:
         probes = [PhysicalPlan(join="full_outer", groupby="scatter",
                                connector="partitioning",
-                               sender_combine=False, kernel_impl="ref"),
+                               sender_combine=False),
                   PhysicalPlan(join="full_outer", groupby="sort",
                                connector="partitioning",
-                               sender_combine=False, kernel_impl="ref")]
+                               sender_combine=False)]
     P = max(g.n_partitions, 1)   # the counter measures all partitions;
-    unit = lambda kc, ks, sp: dataclasses.replace(   # the model is
-        machine, k_compute=kc, k_scatter=ks, sort_pass_frac=sp)  # per one
+    # the model is per one. op_calibrate measures the plain superstep,
+    # so the fit prices the probes on a machine without the kernels (the
+    # kernel path's constants ride along unfitted)
+    unit = lambda kc, ks, sp: dataclasses.replace(
+        machine, k_compute=kc, k_scatter=ks, sort_pass_frac=sp,
+        cuda_kernels=False)
     kcs, rows, rhs = [], [], []
     for p in probes:
         meas = op_calibrate(program, p, g, obs)

@@ -8,10 +8,11 @@ The space is join x group-by x connector x sender_combine x storage from
 hash group-by cannot run a custom combine UDF). Storage defaults to the
 base plan's policy — in-memory drivers never pay a write-back, so
 varying it would only produce cost ties; an out-of-core driver passes
-``storages=STORAGES``. There is no kernel dimension: the device decides
-the kernel (``kernels/backend.resolve``), so every candidate inherits
-the base plan's ``kernel_impl``. Partitioning and merge cadence stay
-inherited too: they are load-time choices, not per-superstep ones.
+``storages=STORAGES``. There is no kernel dimension: the device of the
+tensors picks the kernel, and the cost model reads it from the machine
+(``MachineModel.cuda_kernels``). Partitioning and merge cadence are
+inherited from the base plan: they are load-time choices, not
+per-superstep ones.
 """
 from __future__ import annotations
 

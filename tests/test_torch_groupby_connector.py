@@ -121,22 +121,12 @@ def test_scatter_combine_shapes_on_meta_tensors(op):
 
 
 def test_scatter_combine_kernel_refuses_cpu_tensors():
-    """The kernel's wrapper raises on CPU tensors, and a superstep of a
-    scatter group-by plan on CPU tensors under kernel_impl='cuda' raises
-    before anything runs: no silent plain path."""
-    from repro_torch.core import PhysicalPlan, load_graph, run_host
-    from repro_torch.graph import PageRank
+    """The kernel's own launcher raises on CPU tensors: only the
+    wrapper's device dispatch reaches it."""
     from repro_torch.kernels.scatter_combine import scatter_combine_cuda
     slot, pay, valid = _t(*_stream(1))
     with pytest.raises(ValueError, match="CUDA"):
         scatter_combine_cuda(slot, pay, valid, NP, "sum")
-    edges = np.array([[0, 1], [1, 2], [2, 0], [2, 3]], dtype=np.int64)
-    vert = load_graph(edges, 4, 2, value_dims=2, device="cpu")
-    for connector in ("partitioning", "partitioning_merging"):
-        plan = PhysicalPlan(groupby="scatter", connector=connector,
-                            kernel_impl="cuda")
-        with pytest.raises(ValueError, match="kernel_impl='cuda'"):
-            run_host(vert, PageRank(4), plan, max_supersteps=2)
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
@@ -232,6 +222,14 @@ def test_sort_fold_dense_plain_version(op, case):
         assert not got[1][2].any()
 
 
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that tells Python code it lives on a CUDA device."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
 def test_sort_combine_dense_dispatch(monkeypatch):
     """A monoid name on CUDA tensors folds in the sort_fold_dense kernel
     (its backend entry gets ``_sort_rows``' streams); CPU tensors, and a
@@ -248,13 +246,19 @@ def test_sort_combine_dense_dispatch(monkeypatch):
     monkeypatch.setattr(tg.kbackend, "sorted_fold_dense", kernel)
     plain = tg.sort_combine_dense(slot, pay, valid, NP, "min")
     assert not calls and isinstance(plain[0], torch.Tensor)
-    monkeypatch.setattr(tg.kbackend, "resolve", lambda impl, dev: "cuda")
-    assert tg.sort_combine_dense(slot, pay, valid, NP, "min") == "kernel"
+    on_card = pay.as_subclass(_OnCuda)
+    assert tg.sort_combine_dense(slot, on_card, valid, NP, "min") == \
+        "kernel"
     (ks, ps, vs, Np, op), = calls
     assert (Np, op) == (NP, "min")
     for got, want in zip((ks, ps, vs), tg._sort_rows(slot, pay, valid)):
         assert torch.equal(got, want)
-    udf = tg.sort_combine_dense(slot, pay, valid, NP,
+    # the plain chain allocates on the payload's device: hand it the CPU
+    # tensor underneath
+    scan = tg.scan_fold_dense
+    monkeypatch.setattr(tg, "scan_fold_dense", lambda ks, ps, *rest: scan(
+        ks, ps.as_subclass(torch.Tensor), *rest))
+    udf = tg.sort_combine_dense(slot, on_card, valid, NP,
                                 (torch.minimum, torch.full((D,), np.inf)))
     assert len(calls) == 1
     _same(udf[0], plain[0])

@@ -208,19 +208,11 @@ def test_host_helpers_match_reference():
         assert _round_run_width(m, cap) == jo._round_run_width(m, cap)
 
 
-def test_device_and_kernel_impl_must_agree():
-    """device='cuda' without a card raises, and so does a kernel knob
-    that disagrees with the device: nothing falls back."""
+def test_cuda_device_without_a_card_raises():
+    """device='cuda' (the default) without a card raises: nothing falls
+    back to the CPU."""
     _, mk_t, _ = ALGOS["sssp"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_out_of_core(_tvert(1), mk_t(), mk_t().suggested_plan,
                             budget_partitions=2)
-    with pytest.raises(ValueError, match="kernel_impl"):
-        run_out_of_core(_tvert(1), mk_t(), mk_t().suggested_plan,
-                        budget_partitions=2, kernel_impl="cuda",
-                        device="cpu")
-    with pytest.raises(ValueError, match="kernel_impl"):
-        run_out_of_core(_tvert(1), mk_t(),
-                        _tplan(mk_t(), kernel_impl="cuda"),
-                        budget_partitions=2, device="cpu")

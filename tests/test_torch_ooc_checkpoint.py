@@ -7,6 +7,7 @@ WorkerFailure and from corrupt pages, and the planner's hysteresis state
 carried in the meta."""
 import _torch_threads  # noqa: F401  (first: see the module)
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -103,6 +104,53 @@ def test_checkpoints_cross_packages(algo, writer, tmp_path):
         got = J.gather_values(res.vertex, N)
     assert res.supersteps == steps
     _close(algo, got, want)
+
+
+@pytest.fixture(scope="module")
+def jax_snapshot(tmp_path_factory):
+    """One SSSP job of the reference with snapshots every 3 supersteps:
+    (its superstep-3 snapshot, its values, its superstep count)."""
+    mk_j, _, vd = PROGS["sssp"]
+    ck = tmp_path_factory.mktemp("jax_ckpt")
+    full = j_ooc(J.load_graph(EDGES, N, P=4, value_dims=vd), mk_j(),
+                 mk_j().suggested_plan, budget_partitions=2,
+                 max_supersteps=30, checkpoint_every=3,
+                 checkpoint_dir=str(ck))
+    return (ck / "ooc_000003", J.gather_values(full.vertex, N),
+            full.supersteps)
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref", "pallas", "pallas_tpu"])
+def test_auto_resume_reads_the_references_kernel_impl(impl, jax_snapshot,
+                                                      tmp_path):
+    """The reference stores its kernel_impl in a snapshot's plan; the
+    port has no such field (the device picks the kernel). A port resume
+    with plan='auto' from the reference's snapshot, whatever the stored
+    value, takes the stored plan without it and ends on the writer's
+    uninterrupted run."""
+    from repro_torch.storage.spillfile import page_checksum
+    src, want, steps = jax_snapshot
+    ck = tmp_path / src.name
+    shutil.copytree(src, ck)
+    meta = json.loads((ck / "meta.json").read_text())
+    assert "kernel_impl" in meta["plan"]
+    meta["plan"]["kernel_impl"] = impl
+    (ck / "meta.json").write_text(json.dumps(meta))
+    # re-seal the manifest, so the edited snapshot is a valid one
+    commit = json.loads((ck / "COMMIT.json").read_text())
+    commit["files"]["meta.json"] = (ck / "meta.json").stat().st_size
+    commit["crcs"]["meta.json"] = list(
+        page_checksum((ck / "meta.json").read_bytes()))
+    (ck / "COMMIT.json").write_text(json.dumps(commit))
+    assert verify_ooc_checkpoint(str(ck)) == []
+    _, mk_t, _ = PROGS["sssp"]
+    res = run_out_of_core(None, mk_t(), "auto", budget_partitions=2,
+                          max_supersteps=30, resume_from=str(ck),
+                          device="cpu")
+    saved = {k: v for k, v in meta["plan"].items() if k != "kernel_impl"}
+    assert res.initial_plan == T.PhysicalPlan(**saved)
+    assert res.supersteps == steps
+    assert np.array_equal(_vals(res), want)
 
 
 def test_crash_mid_checkpoint_is_skipped(tmp_path):

@@ -65,6 +65,20 @@ def _jplan(p):
     return J.PhysicalPlan(**dataclasses.asdict(p))
 
 
+def _tplan(jp):
+    """The reference's plan in the port's fields (its kernel_impl has no
+    counterpart: the device picks the kernel)."""
+    return T.PhysicalPlan.from_dict(dataclasses.asdict(jp))
+
+
+def _tstate(state):
+    """A reference controller's state_dict with its pending plan in the
+    port's fields."""
+    want = state["want"]
+    return dict(state, want=dataclasses.asdict(
+        T.PhysicalPlan.from_dict(want)) if want else None)
+
+
 OBSERVATIONS = {
     "in_memory": {},
     "ooc": dict(ooc=True),
@@ -118,8 +132,7 @@ def test_estimate_and_rank_equal_reference_on_cpu_machine(density, kind):
                          storages=J.STORAGES)
             tr = TP.rank(tprog, tg, to, machine=TP.CPU_MACHINE,
                          storages=T.STORAGES)
-            assert [dataclasses.asdict(p) for p, _ in tr] == \
-                [dataclasses.asdict(p) for p, _ in jr]
+            assert [p for p, _ in tr] == [_tplan(p) for p, _ in jr]
 
 
 def test_cpu_machine_is_the_emulated_machine():
@@ -152,17 +165,14 @@ def _web_stats():
 
 def test_h100_prices_the_kernel_path_below_the_plain_path():
     """The plan that runs both kernels: the H100 machine prices it below
-    the same plan pinned to the plain versions, and below what the CPU
-    machine's kernel-free pricing of the same bytes would be."""
+    the same machine without the kernels (the plain versions)."""
     g, obs = _web_stats(), TP.Observation(frontier_density=1.0)
     base = T.PhysicalPlan(join="full_outer", groupby="sort",
                           connector="partitioning", sender_combine=True)
-    ref = dataclasses.replace(base, kernel_impl="ref")
     m = TP.H100_MACHINE
-    s = lambda p, mm: TP.estimate(p, g, obs, mm).seconds(mm)
-    assert s(base, m) < s(ref, m)
     plain = dataclasses.replace(m, cuda_kernels=False)
-    assert s(base, plain) == s(ref, m)
+    s = lambda p, mm: TP.estimate(p, g, obs, mm).seconds(mm)
+    assert s(base, m) < s(base, plain)
 
 
 def test_h100_send_leg_is_the_edge_order_stream():
@@ -195,8 +205,6 @@ def test_plan_space_has_no_kernel_dimension():
     assert len(list(TP.plan_space(prog))) == 16
     both = list(TP.plan_space(prog, storages=T.STORAGES))
     assert len(both) == 32
-    pinned = T.PhysicalPlan(kernel_impl="ref")
-    assert {p.kernel_impl for p in TP.plan_space(prog, pinned)} == {"ref"}
     with pytest.raises(TypeError):
         list(TP.plan_space(prog, kernel_impls=("ref", "cuda")))
     with pytest.raises(ValueError):
@@ -274,7 +282,7 @@ def test_controllers_decide_alike(case):
                          machine=JP.EMULATED_MACHINE, **jspace)
     tplan, _ = TP.choose(prog_t, tg, TP.Observation(**obs0),
                          machine=TP.CPU_MACHINE, **tspace)
-    assert dataclasses.asdict(tplan) == dataclasses.asdict(jplan)
+    assert tplan == _tplan(jplan)
     jc = JP.AdaptiveController(prog_j, jg, jplan, JP.AdaptiveConfig(**cfg),
                                machine=JP.EMULATED_MACHINE, space_kw=jspace)
     tc = TP.AdaptiveController(prog_t, tg, tplan, TP.AdaptiveConfig(**cfg),
@@ -288,8 +296,8 @@ def test_controllers_decide_alike(case):
         assert (a is None) == (b is None)
         if a is not None:
             switched += 1
-            assert dataclasses.asdict(b) == dataclasses.asdict(a)
-        assert tc.state_dict() == jc.state_dict()
+            assert b == _tplan(a)
+        assert tc.state_dict() == _tstate(jc.state_dict())
         # the reference's decision state loads into a fresh port
         # controller, which then carries the same state
         fresh = TP.AdaptiveController(prog_t, tg, tc.plan,
@@ -297,12 +305,10 @@ def test_controllers_decide_alike(case):
                                       machine=TP.CPU_MACHINE,
                                       space_kw=tspace)
         fresh.load_state(jc.state_dict())
-        assert fresh.state_dict() == jc.state_dict()
+        assert fresh.state_dict() == _tstate(jc.state_dict())
     assert switched >= 1
-    assert [(s, dataclasses.asdict(o), dataclasses.asdict(n))
-            for s, o, n in tc.switches] == \
-        [(s, dataclasses.asdict(o), dataclasses.asdict(n))
-         for s, o, n in jc.switches]
+    assert tc.switches == [(s, _tplan(o), _tplan(n))
+                           for s, o, n in jc.switches]
 
 
 class _FakeCost:
@@ -328,6 +334,20 @@ def test_fit_constants_equal_reference_on_the_same_measurements(
         j = JC._fit_constants(jprog, jg, JP.EMULATED_MACHINE)
         t = TC._fit_constants(tprog, tg, TP.CPU_MACHINE)
         assert t == pytest.approx(j, rel=REL, abs=0.0)
+
+
+@pytest.mark.parametrize("name", ["pagerank", "sssp", "custom"])
+def test_fit_prices_the_probes_on_the_plain_path(name):
+    """The probes run the plain superstep on meta tensors, so the fit
+    prices them on a machine without the kernels: the H100 machine's
+    fitted constants equal, to the bit, those of the same machine with
+    ``cuda_kernels=False``."""
+    _, _, prog = next(p for p in PROGRAMS if p[0] == name)
+    g = TP.GraphStats(**SMALL, value_dims=prog.value_dims,
+                      msg_dims=prog.msg_dims)
+    plain = dataclasses.replace(TP.H100_MACHINE, cuda_kernels=False)
+    assert TC._fit_constants(prog, g, TP.H100_MACHINE) == \
+        TC._fit_constants(prog, g, plain)
 
 
 def test_calibrate_machine_clamps_and_caches_per_device_and_op():
@@ -366,10 +386,8 @@ def test_probe_superstep_runs_on_meta(name):
     g = TP.GraphStats(**WEB, value_dims=prog.value_dims,
                       msg_dims=prog.msg_dims)
     for plan in (T.PhysicalPlan(groupby="scatter" if name != "custom"
-                                else "sort", sender_combine=False,
-                                kernel_impl="ref"),
-                 T.PhysicalPlan(groupby="sort", sender_combine=False,
-                                kernel_impl="ref")):
+                                else "sort", sender_combine=False),
+                 T.PhysicalPlan(groupby="sort", sender_combine=False)):
         c = TP.op_calibrate(prog, plan, g)
         # at least every edge slot's payload generation and the vertex
         # relation's read

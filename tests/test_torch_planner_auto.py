@@ -55,7 +55,10 @@ def _stat_keys(stats):
 
 
 def _same_plan(t, j):
-    return dataclasses.asdict(t) == dataclasses.asdict(j)
+    """The port's plan equals the reference's in every field the port
+    has: the reference's kernel_impl has no counterpart (the device
+    picks the kernel)."""
+    return t == T.PhysicalPlan.from_dict(dataclasses.asdict(j))
 
 
 def test_auto_sssp_on_the_lattice_switches_as_the_reference():
@@ -143,20 +146,6 @@ def test_auto_with_calibration_is_exact_against_static():
             assert 0.5 <= s["k_compute"] <= 128.0
             assert 1.0 <= s["k_scatter"] <= 64.0
             assert 0.02 <= s["sort_pass_frac"] <= 4.0
-
-
-def test_kernel_impl_stays_pinned_across_switches():
-    """A kernel_impl override rides on every plan the planner picks (on
-    the CPU "ref" is the plain path; "cuda" raises there)."""
-    vert = T.load_graph(GRID, N_GRID, 4, value_dims=1, device="cpu")
-    res = T.run_host(vert, TG.SSSP(source=0), "auto", max_supersteps=100,
-                     kernel_impl="ref")
-    assert any(s.get("event") == "plan-switch" for s in res.stats)
-    assert res.plan.kernel_impl == "ref"
-    with pytest.raises(ValueError):
-        T.run_host(T.load_graph(GRID, N_GRID, 4, value_dims=1,
-                                device="cpu"), TG.SSSP(source=0), "auto",
-                   max_supersteps=3, kernel_impl="cuda")
 
 
 def test_auto_space_restricts_the_search():

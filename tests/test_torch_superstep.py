@@ -160,14 +160,24 @@ def test_superstep_refuses_what_later_slices_bring():
         sharded(vert, msg, gs)
 
 
-def test_superstep_device_and_kernel_impl_must_agree():
-    """On CPU tensors kernel_impl='cuda' raises: no silent plain path."""
+@pytest.mark.parametrize("plan", [
+    T.PhysicalPlan(join="full_outer", groupby="scatter"),
+    T.PhysicalPlan(join="full_outer", groupby="sort"),
+    T.PhysicalPlan(connector="partitioning_merging"),
+    T.PhysicalPlan(join="left_outer")],
+    ids=["scatter", "sort", "merging", "left_outer"])
+def test_superstep_device_picks_the_kernel(plan):
+    """The device of the tensors alone picks the implementation: on CPU
+    tensors ``run_host`` runs every stage's plain version and launches
+    none of the four graph kernels."""
+    from repro_torch.kernels import (csr_spmv, scatter_combine,
+                                     segment_combine, sort_fold_dense)
+    counters = [m.counter for m in (csr_spmv, segment_combine,
+                                    scatter_combine, sort_fold_dense)]
+    before = [c.launches for c in counters]
     prog = TG.SSSP(source=0)
     vert = T.load_graph(EDGES, N, 4, value_dims=1, device="cpu")
-    plan = T.PhysicalPlan(kernel_impl="cuda")
-    with pytest.raises(ValueError):
-        T.run_host(vert, prog, plan, max_supersteps=2)
-    plan = T.PhysicalPlan(kernel_impl="ref")
     res = T.run_host(vert, prog, plan, max_supersteps=2)
-    assert res.supersteps == 2
-    assert isinstance(res.vertex.value, torch.Tensor)
+    assert res.supersteps == 2 and res.plan == plan
+    assert res.vertex.value.device.type == "cpu"
+    assert [c.launches for c in counters] == before
