@@ -342,6 +342,9 @@ SORT_FOLD_SRC = "src/repro_torch/kernels/csrc/sort_fold_dense.cu"
 SORT_FOLD_REPLACES = ("src/repro/core/groupby.py sort_combine_dense (XLA's "
                       "associative_scan and dropping scatter; no Pallas "
                       "kernel)")
+PACK_SRC = "src/repro_torch/kernels/csrc/bucket_pack.cu"
+PACK_REPLACES = ("src/repro/core/connector.py bucket_by_owner (XLA's argsort, "
+                 "gathers and dropping scatters; no Pallas kernel)")
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 GMM_SRC = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:75"
@@ -381,6 +384,19 @@ BTC_INBOX = dict(P=4, Np=4_676_087, runs=4, owned=3_596_989, density=0.89)
 GENOME_EP = 22_901_414
 GENOME_INBOX = dict(P=4, M=4 * int((GENOME_EP / 4 + 8) * 1.5),
                     Np=29_669_195, valid_share=1 / 3)
+# the route's streams (S source partitions of K rows, P = 4 hash owners)
+# at the three cells' shapes: the genome's sender combine leaves Ep rows
+# a partition (capc >= Ep: no compaction), half of them valid in the two
+# supersteps that send and none in the other seven, bucket_cap =
+# bucket_capacity; btc-14m's and graph500-22's combines are compacted to
+# n_parts x bucket_cap rows. Each stream is dst-ascending (presorted).
+ROUTE_SHAPES = {
+    "genome": dict(S=4, K=GENOME_EP, cap=int((GENOME_EP / 4 + 8) * 1.5),
+                   n=91_289_826, valid_share=0.5),
+    "btc-14m": dict(S=4, K=4 * 3_596_989, cap=3_596_989, n=14_386_100,
+                    valid_share=0.89),
+    "graph500-22": dict(S=4, K=4 * 598_738, cap=598_738, n=2_394_952,
+                        valid_share=0.75)}
 # the kernels each main path must launch
 GRAPH_KERNELS = ("segment_combine", "csr_spmv")
 SERVING_KERNELS = ("flash_attention", "moe_gmm")
@@ -966,11 +982,161 @@ def sort_fold_timing(launches: int, inbox=None) -> dict:
                 all_invalid=res["invalid"], shape=dict(P=P_, M=M, Np=Np, D=1))
 
 
+def pack_stream(S: int, K: int, n: int, D: int, device, *, seed: int,
+                valid_share: float = 0.5, presorted: bool = True,
+                owner_step: int = 1, interleave: bool = False):
+    """A route's stream: S rows of K messages, dst drawn from [0, n) in
+    steps of ``owner_step`` (``owner_step`` = P puts every row on owner
+    0), dst-ascending where ``presorted``, ``valid_share`` of the rows
+    valid (every other row where ``interleave``), invalid rows at dst
+    -1, payload uniform in [0, 1). Made on ``device`` from a seeded
+    generator. -> (dst int32, payload (S, K, D) float32, valid)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    dst = torch.randint(0, max(n // owner_step, 1), (S, K), generator=g,
+                        device=device, dtype=torch.int32) * owner_step
+    if presorted:
+        dst = torch.sort(dst, dim=1).values
+    if interleave:
+        valid = (torch.arange(K, device=device) % 2 == 0).expand(S, K) \
+            .contiguous()
+    else:
+        valid = torch.rand((S, K), generator=g, device=device) < valid_share
+    dst = torch.where(valid, dst, -1)
+    pay = torch.rand((S, K, D), generator=g, device=device)
+    return dst, pay, valid
+
+
+def check_pack(dst, pay, valid, P: int, cap: int, what: str = "", **kw):
+    """The route's kernel against its plain chain, all four outputs bit
+    for bit. With ``kw`` (sort_by_dst, partition, capacity, presorted)
+    the whole ``connector.bucket_by_owner`` on ``dst``'s device against
+    the same on CPU copies (the chain the CPU tests hold to the JAX
+    reference); without, ``bucket_pack`` against ``bucket_pack_ref``
+    on the same tensors. -> the valid rows kept."""
+    import torch
+    from repro_torch.core.connector import bucket_by_owner
+    from repro_torch.kernels.bucket_pack import bucket_pack, bucket_pack_ref
+    if kw:
+        got = bucket_by_owner(dst, pay, valid, P, cap, **kw)
+        want = bucket_by_owner(dst.cpu(), pay.cpu(), valid.cpu(), P, cap,
+                               **kw)
+    else:
+        got = bucket_pack(dst, pay, valid, P, cap)
+        want = bucket_pack_ref(dst, pay, valid, P, cap)
+    names = ("b_dst", "b_payload", "b_valid", "overflow")
+    for name, a, b in zip(names, got, want):
+        b = b.to(a.device)
+        same = same_bits(a, b) if a.is_floating_point() else \
+            bool(torch.equal(a, b))
+        if not (a.shape == b.shape and a.dtype == b.dtype and same):
+            raise AssertionError(
+                f"bucket_pack {what} shape {tuple(pay.shape)} P {P} cap {cap}"
+                f" {kw}: {name} kernel != plain")
+    return int(got[2].sum())
+
+
+def pack_parity(device, shapes=None) -> int:
+    """The route's kernel against its plain chain, bit for bit: at the
+    three cells' streams (``shapes``: ROUTE_SHAPES' form), the genome's
+    also with no row valid; then small cases: P = 1, 4, 16, 256 and
+    4096, D = 1 and 2 (to 4 at P = 4), no row valid, every row on one
+    owner, overflow at the cap with every other row invalid, cap >= K
+    (at P <= 16), K = 0, 1, one tile
+    and past it, streams in no order; then range partitioning (dst
+    sorted first, and presorted), the merging connector (sorted first,
+    and presorted) through ``bucket_by_owner`` against the CPU chain.
+    -> the valid rows kept, summed."""
+    shapes = shapes or ROUTE_SHAPES
+    kept = 0
+    for name, sh in shapes.items():
+        for share in ((sh["valid_share"], 0.0) if name == "genome"
+                      else (sh["valid_share"],)):
+            dst, pay, valid = pack_stream(sh["S"], sh["K"], sh["n"], 1,
+                                          device, seed=11,
+                                          valid_share=share)
+            kept += check_pack(dst, pay, valid, 4, sh["cap"],
+                               f"{name}, {share} valid")
+            del dst, pay, valid
+            free(device)
+    for P_ in (1, 4, 16, 256, 4096):
+        for D in ((1, 2, 3, 4) if P_ == 4 else (1, 2)):
+            # cap >= K only where P C stays small
+            for K, cap, share in ((10_007, 7, 0.8),
+                                  (10_007, 20_000 if P_ <= 16 else 40, 0.5),
+                                  (4096, 300 if P_ <= 16 else 3, 1.0),
+                                  (8193, 64, 0.3), (1, 1, 1.0), (0, 5, 1.0)):
+                kept += check_pack(*pack_stream(3, K, 50_000, D, device,
+                                                seed=P_ + D + K,
+                                                valid_share=share,
+                                                presorted=K % 2 == 0),
+                                   P_, cap, f"D={D} K={K} share {share}")
+        kept += check_pack(*pack_stream(2, 30_000, 50_000, 2, device, seed=3,
+                                        valid_share=0.0), P_, 50, "none valid")
+        kept += check_pack(*pack_stream(2, 30_000, 50_000, 1, device, seed=4,
+                                        valid_share=0.9, owner_step=P_),
+                           P_, 25_000 if P_ <= 16 else 2_000, "one owner")
+        kept += check_pack(*pack_stream(2, 30_000, 50_000, 1, device, seed=5,
+                                        interleave=True, presorted=False),
+                           P_, max(7_500 // P_, 1), "overflow, interleaved")
+    for partition, sort_by_dst in (("range", False), ("range", True),
+                                   ("hash", True)):
+        for presorted in (False, True):
+            for P_, cap in ((4, 150_000), (16, 2_000)):
+                n = 500_000
+                kw = dict(sort_by_dst=sort_by_dst, partition=partition,
+                          capacity=-(-n // P_), presorted=presorted)
+                kept += check_pack(*pack_stream(4, 400_000, n, 2, device,
+                                                seed=P_ + cap,
+                                                valid_share=0.7,
+                                                presorted=presorted),
+                                   P_, cap, "connector", **kw)
+    return kept
+
+
+def pack_timing(launches: int, shapes=None) -> dict:
+    """The route's bucket pack at the three cells' streams (the genome's
+    also with no row valid): the kernel and the plain chain (argsort by
+    owner, four gathers, searchsorted, scatters through the sink slot),
+    D = 1, P = 4; the kernel equal to the chain bit for bit on each.
+    Bound: 1 B a row (its flag), 8 B a valid row (dst and payload read),
+    9 B a slot (dst, payload and valid written once)."""
+    from repro_torch.kernels.bucket_pack import (bucket_pack_cuda,
+                                                 bucket_pack_ref)
+    shapes = shapes or ROUTE_SHAPES
+    res = {}
+    for name, sh in shapes.items():
+        for kind, share in ((("mixed", sh["valid_share"]), ("invalid", 0.0))
+                            if name == "genome"
+                            else (("mixed", sh["valid_share"]),)):
+            dst, pay, valid = pack_stream(sh["S"], sh["K"], sh["n"], 1,
+                                          "cuda", seed=12,
+                                          valid_share=share)
+            check_pack(dst, pay, valid, 4, sh["cap"], f"{name} {kind}")
+            rows = int(valid.sum())
+            nbytes = sh["S"] * sh["K"] + rows * 8 + sh["S"] * 4 * sh["cap"] * 9
+            res[f"{name} {kind}"] = dict(
+                ms=time_ms(lambda: bucket_pack_cuda(dst, pay, valid, 4,
+                                                    sh["cap"])),
+                plain_ms=time_ms(lambda: bucket_pack_ref(dst, pay, valid, 4,
+                                                         sh["cap"]), reps=5),
+                bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, valid_rows=rows,
+                shape=dict(S=sh["S"], K=sh["K"], C=sh["cap"], P=4, D=1))
+            del dst, pay, valid
+            free("cuda")
+    first = next(iter(res))
+    return dict(name="bucket_pack", route="cuda", source=PACK_SRC,
+                replaces=PACK_REPLACES, launches=launches, **res[first],
+                bound_by="bytes",
+                cells={k: v for k, v in res.items() if k != first})
+
+
 # ------------------------------------------------------------- main
 
 def run_main_path(edges, n, device, stats_out: dict):
     """PageRank + SSSP through the port's entry points on ``device``;
-    each run must launch the receiver's scatter_combine kernel."""
+    each run must launch the receiver's scatter_combine kernel and the
+    route's bucket_pack."""
     import torch
     from repro_torch.core import gather_values, load_graph, run_host
     from repro_torch.graph import SSSP, PageRank
@@ -994,8 +1160,8 @@ def run_main_path(edges, n, device, stats_out: dict):
             mem["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         walls = [s["wall_s"] for s in res.stats if "wall_s" in s]
         launches = {k: c.launches - before[k] for k, c in COUNTERS.items()}
-        need_launches(name, dict(launches=launches), ("scatter_combine",),
-                      device)
+        need_launches(name, dict(launches=launches),
+                      ("scatter_combine", "bucket_pack"), device)
         need_no_launches(name, dict(launches=launches), ("sort_fold_dense",))
         stats_out[name] = dict(
             supersteps=res.supersteps, run_s=time.perf_counter() - t0,
@@ -1540,7 +1706,8 @@ def mutations_and_programs(edges, n, hops, path_merge_child=None, *,
     chain = chain_graph(nc)
     pm = PathMerge(rounds=16)
     res_g, st = drive(pm, chain, nc, 2, device)
-    need_launches("PathMerge", st, ("csr_spmv", "sort_fold_dense"), device)
+    need_launches("PathMerge", st, ("csr_spmv", "sort_fold_dense",
+                                     "bucket_pack"), device)
     if path_merge_child is not None:
         cpu_vert, cpu_steps, cpu_s, waited = path_merge_child.result()
     else:
@@ -4639,6 +4806,8 @@ def card_phases(args, name: str, child) -> int:
     torch.cuda.synchronize()
     sort_fold_err = sort_fold_parity("cuda")
     torch.cuda.synchronize()
+    pack_kept = pack_parity("cuda")
+    torch.cuda.synchronize()
     flash_err = flash_parity()
     torch.cuda.synchronize()
     gmm_err = gmm_parity()
@@ -4648,7 +4817,8 @@ def card_phases(args, name: str, child) -> int:
     log(f"kernel parity: fold bit-exact (max abs err {fold_err}), gather "
         f"exact (max abs err {gather_err}), scatter_combine (max abs err "
         f"{scatter_err}), sort_fold_dense bit-exact (max abs err "
-        f"{sort_fold_err}), flash_attention (max abs err "
+        f"{sort_fold_err}), bucket_pack bit-exact ({pack_kept} rows "
+        f"kept), flash_attention (max abs err "
         f"{flash_err}), moe_gmm (max abs err {gmm_err}); gradients: "
         f"flash_attention (max abs err {flash_grad_err}), moe_gmm (max abs "
         f"err {gmm_grad_err}) in {time.perf_counter() - t:.1f} s")
@@ -4691,6 +4861,10 @@ def card_phases(args, name: str, child) -> int:
     # the receiver group-by at btc-14m.pagerank's inbox (5, continued)
     kernels.append(scatter_timing(launches["scatter_combine"]))
     log(f"scatter_combine timing: {json.dumps(kernels[-1])}")
+    torch.cuda.empty_cache()
+    # the route's bucket pack at the three cells' streams (5, continued)
+    kernels.append(pack_timing(launches["bucket_pack"]))
+    log(f"bucket_pack timing: {json.dumps(kernels[-1])}")
     torch.cuda.empty_cache()
 
     # 7. reduced qwen2-moe, card vs CPU
@@ -4809,7 +4983,7 @@ def card_phases(args, name: str, child) -> int:
         if k["name"] in GRAPH_KERNELS:
             k["launches_by_path"] = {p: counts[k["name"]]
                                      for p, counts in by_path.items()}
-        if k["name"] == "sort_fold_dense":
+        if k["name"] in ("sort_fold_dense", "bucket_pack"):
             k["launches_by_path"] = {
                 p: v["launches"][k["name"]] for p, v in phase10.items()
                 if "launches" in v} | {

@@ -2,6 +2,7 @@
 Hopper (``csrc/``) behind a wrapper that launches it on CUDA tensors and
 runs its plain torch version on CPU tensors."""
 from repro_torch.kernels import backend, build
+from repro_torch.kernels.bucket_pack import counter as _pack_counter
 from repro_torch.kernels.csr_spmv import counter as _gather_counter
 from repro_torch.kernels.flash_attention import counter as _flash_counter
 from repro_torch.kernels.moe_gmm import counter as _gmm_counter
@@ -13,6 +14,7 @@ from repro_torch.kernels.sort_fold_dense import counter as _sort_fold_counter
 COUNTERS = {"segment_combine": _fold_counter, "csr_spmv": _gather_counter,
             "scatter_combine": _scatter_counter,
             "sort_fold_dense": _sort_fold_counter,
+            "bucket_pack": _pack_counter,
             "flash_attention": _flash_counter, "moe_gmm": _gmm_counter}
 
 __all__ = ["COUNTERS", "backend", "build"]

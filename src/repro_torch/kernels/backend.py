@@ -1,22 +1,23 @@
 """The engine-facing kernel entry points: the partition-flattened edge
-gather, the batched blocked segmented fold and the receiver's scatter
-and sorted-run folds into dense slots.
+gather, the batched blocked segmented fold, the receiver's scatter
+and sorted-run folds into dense slots, and the connector's bucket pack.
 
 The device of the tensors chooses the implementation, and nothing else
 does: each kernel wrapper launches its CUDA kernel on CUDA tensors and
 runs its plain torch version on CPU tensors. The gather, the segmented
-fold and the scatter fold also take ``meta`` tensors (shapes only, the
-operator counter's probe supersteps) down the plain path; the sort
-group-by calls ``sorted_fold_dense`` on CUDA tensors only. Any other
-device raises in the wrapper (``no kernel for device ...``); there is
-no fallback from one path to the other and no override. Only the
-innermost function depends on the device, so a CPU run walks the
-control flow of a CUDA run.
+fold, the scatter fold and the bucket pack also take ``meta`` tensors
+(shapes only, the operator counter's probe supersteps) down the plain
+path; the sort group-by calls ``sorted_fold_dense`` on CUDA tensors
+only. Any other device raises in the wrapper (``no kernel for device
+...``); there is no fallback from one path to the other and no
+override. Only the innermost function depends on the device, so a CPU
+run walks the control flow of a CUDA run.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.bucket_pack.bucket_pack import bucket_pack
 from repro_torch.kernels.csr_spmv.csr_spmv import edge_gather
 from repro_torch.kernels.scatter_combine.scatter_combine import \
     scatter_combine

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 KERNELS = ("segment_combine", "csr_spmv", "scatter_combine",
-           "sort_fold_dense", "flash_attention", "moe_gmm")
+           "sort_fold_dense", "bucket_pack", "flash_attention", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

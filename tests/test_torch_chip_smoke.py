@@ -222,6 +222,24 @@ def test_phase_2_sort_fold_parity_on_the_cpu():
                             ("sort_fold_dense",))
 
 
+def test_phase_2_pack_parity_on_the_cpu():
+    """Phase 2's bucket pack parity walks its cases at small streams (the
+    plain chain on both sides; the connector's modes against CPU copies);
+    the card's PageRank and PathMerge runs each need a bucket_pack
+    launch, which the CPU path never makes."""
+    shapes = {"genome": dict(S=4, K=50_000, cap=20_000, n=200_000,
+                             valid_share=0.5),
+              "btc-14m": dict(S=4, K=40_000, cap=10_000, n=40_000,
+                              valid_share=0.89)}
+    assert cs.pack_parity("cpu", shapes) > 0
+    for what in ("pagerank", "PathMerge"):
+        cs.need_launches(what, {"launches": {"bucket_pack": 0}},
+                         ("bucket_pack",), "cpu")
+        with pytest.raises(AssertionError, match="bucket_pack"):
+            cs.need_launches(what, {"launches": {"bucket_pack": 0}},
+                             ("bucket_pack",), "cuda")
+
+
 def test_phases_20_and_21_on_the_cpu():
     """Phases 20-21 at reduced size on the CPU: the trainer (4 steps of
     the reduced qwen2-moe, sort dispatch), the float32 step against the

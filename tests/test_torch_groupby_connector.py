@@ -294,14 +294,36 @@ def test_run_combine_dense(op):
     _same(got[1], want[1])
 
 
-@pytest.mark.parametrize("partition,sort_by_dst,presorted", [
-    ("hash", False, False), ("hash", True, False), ("range", False, False),
-    ("range", True, False), ("range", False, True), ("hash", False, True)])
-@pytest.mark.parametrize("cap", [5, 200])
+MODES = [("hash", False, False), ("hash", True, False),
+         ("range", False, False), ("range", True, False),
+         ("range", False, True), ("hash", False, True)]
+# the streams the bucket pack must take besides the base one (4 owners,
+# D = 2, 20 % of the rows invalid): 1 and 16 owners, D = 1, no row valid,
+# every valid row on one owner (past cap 200), every other row invalid
+# with every valid row on one owner (past cap 5)
+CASES = ["P1", "P16", "D1", "none_valid", "one_owner", "interleaved"]
+
+
+@pytest.mark.parametrize(
+    "partition,sort_by_dst,presorted,case",
+    [pytest.param(*m, "base", id="-".join(map(str, m))) for m in MODES]
+    + [pytest.param(*m, c, id="-".join(map(str, m + (c,))))
+       for m in MODES for c in CASES])
+@pytest.mark.parametrize("cap", [5, 200, 300])     # 300 >= K = 257
 def test_bucket_by_owner_and_exchange(partition, sort_by_dst, presorted,
-                                      cap):
-    n_parts, capacity = 4, 30
+                                      case, cap):
+    n_parts = {"P1": 1, "P16": 16}.get(case, 4)
+    capacity = 30
     dst, pay, valid = _stream(5, n_keys=n_parts * capacity)
+    if case == "D1":
+        pay = pay[..., :1]
+    elif case == "none_valid":
+        valid = np.zeros_like(valid)
+    elif case in ("one_owner", "interleaved"):
+        # a multiple of n_parts below capacity: owner 0 either way
+        dst = (dst % (capacity // n_parts)) * n_parts
+        if case == "interleaved":
+            valid = np.broadcast_to(np.arange(M) % 2 == 0, (P, M)).copy()
     if presorted:
         key = np.where(valid, dst, np.iinfo(np.int32).max)
         order = np.argsort(key, axis=1, kind="stable")
@@ -320,6 +342,25 @@ def test_bucket_by_owner_and_exchange(partition, sort_by_dst, presorted,
     wx = jc.exchange_emulated(*want[:3])
     for g, w in zip(gx, wx):
         _same(g.contiguous(), w)
+
+
+def test_bucket_pack_launches_no_kernel_on_cpu_or_meta():
+    """CPU and meta tensors take the plain chain: the kernel's launch
+    counter stays at 0, and a meta stream gives the buckets' shapes."""
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.kernels.bucket_pack import bucket_pack
+    assert COUNTERS["bucket_pack"].launches == 0
+    dst, pay, valid = _stream(9, n_keys=4 * 30)
+    got = tc.bucket_by_owner(*_t(dst, pay, valid), 4, 50,
+                             sort_by_dst=False)
+    assert [tuple(g.shape) for g in got] == [(P, 4, 50), (P, 4, 50, D),
+                                             (P, 4, 50), (P,)]
+    meta = [t.to("meta") for t in _t(dst, pay, valid)]
+    got = bucket_pack(*meta, 4, 50)
+    assert all(g.device.type == "meta" for g in got)
+    assert [tuple(g.shape) for g in got] == [(P, 4, 50), (P, 4, 50, D),
+                                             (P, 4, 50), (P,)]
+    assert COUNTERS["bucket_pack"].launches == 0
 
 
 @pytest.mark.parametrize("capc", [8, 100, 400])

@@ -138,6 +138,7 @@ def test_kernels_are_cuda_sources_in_the_port():
                            ("csr_spmv", "edge_gather_pallas"),
                            ("scatter_combine", "scatter_combine_dense"),
                            ("sort_fold_dense", "sort_combine_dense"),
+                           ("bucket_pack", "bucket_by_owner"),
                            ("flash_attention", "flash_attention_pallas"),
                            ("moe_gmm", "grouped_matmul_pallas")):
         src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
