@@ -10,15 +10,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bench import graphs
+
 
 def power_iteration(edges: torch.Tensor, n: int, damping: float,
                     iterations: int, dtype) -> torch.Tensor:
-    src, dst = edges[:, 0], edges[:, 1]
-    deg = torch.bincount(src, minlength=n).clamp_min(1).to(dtype)
+    """The iteration over blocks of ``graphs.BLOCK`` edges, so a graph's
+    sends never stand on the device whole beside its edge list."""
+    blocks = [slice(a, a + graphs.BLOCK)
+              for a in range(0, edges.shape[0], graphs.BLOCK)]
+    deg = torch.zeros(n, dtype=torch.int64, device=edges.device)
+    for b in blocks:
+        deg += torch.bincount(edges[b, 0], minlength=n)
+    deg = deg.clamp_min(1).to(dtype)
     r = torch.full((n,), 1.0 / n, dtype=dtype, device=edges.device)
     for _ in range(iterations - 1):
         acc = torch.zeros(n, dtype=dtype, device=edges.device)
-        acc.index_add_(0, dst, (r / deg)[src])
+        share = r / deg
+        for b in blocks:
+            acc.index_add_(0, edges[b, 1], share[edges[b, 0]])
         r = (1.0 - damping) / n + damping * acc
     return r
 

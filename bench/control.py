@@ -31,12 +31,15 @@ def control_readings(workload: str, seed: int, device="cuda",
     alg = mf.algorithm(traffic["algorithm"])
     g = graphs.make_graph(cfg, seed, torch.device(device))
     stream = jobgen.JobStream(traffic, g.edges, g.n, seed)
+    n = g.n
+    edges = graphs.to_int64(g.edges.cpu(), device)   # as the harness's
+    del g
     limits = traffic["limits"]
     worst = {}
     for i in range(1, int(traffic["compare_jobs"]) + 1):
         args = stream.job(i)
-        got = alg.control(g.edges, g.n, args)
-        nums = alg.compare(got, alg.reference(g.edges, g.n, args))
+        got = alg.control(edges, n, args)
+        nums = alg.compare(got, alg.reference(edges, n, args))
         for k, v in nums.items():
             worst[k] = v if k not in worst else max(worst[k], v)
     return {"workload": workload, "seed": seed,

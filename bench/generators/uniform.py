@@ -1,11 +1,12 @@
 """Near-uniform degree, the stand-in for the Pregelix paper's BTC graph:
 ``pairs`` endpoint pairs drawn uniformly over ``vertices`` ids, then
-``simple_undirected`` (each pair stored both ways, so the mean stored
+Graphalytics' form (``graphs.unique_pairs``, ``graphs.graph_of_pairs``:
+each pair stored both ways, so the mean stored
 degree is about 2 * pairs / vertices). A torch copy of the draw of
 ``repro_torch.graph.generators.uniform_graph``."""
 import torch
 
-from bench.graphs import Graph, simple_undirected
+from bench.graphs import Graph, graph_of_pairs, unique_pairs
 
 
 def make(cfg: dict, gen: torch.Generator, device) -> Graph:
@@ -13,4 +14,6 @@ def make(cfg: dict, gen: torch.Generator, device) -> Graph:
     m = int(cfg["pairs"])
     src = torch.randint(0, n, (m,), generator=gen, device=device)
     dst = torch.randint(0, n, (m,), generator=gen, device=device)
-    return simple_undirected(src, dst, n)
+    pairs = unique_pairs(src, dst, n)
+    del src, dst
+    return graph_of_pairs(pairs, n)

@@ -3,12 +3,34 @@ back to back for the window, then judge a seeded sample of the window's
 answers against the plain reference and read the cell's metrics.
 
 The window is one analyst in a closed loop: the next job starts when the
-last one's ``run_host`` has returned and the device is synchronised. A
-job is ``repro_torch.core.run_host(vert, program, plan)`` with a fresh
-program. Superstep latencies are read on the device's clock: a CUDA
+last job has returned and the device is synchronised. A job is one call
+of the port over a fresh program: on one chip
+``repro_torch.core.run_host(vert, program, plan)``; on a cell of
+``chips`` > 1 ``repro_torch.core.sharded.run_sharded(vert, program, plan,
+devices=chips, pool=pool)``, the partitions split over ``chips`` ranks of
+one ``RankPool`` that set-up starts after the bulk load and that is
+closed after the window, before the comparison. The pool's transport is
+``launch/mesh.py``'s: NCCL with a rank a card, gloo where ranks share a
+card (and on the CPU).
+
+Superstep latencies on one chip are read on the device's clock: a CUDA
 event at the job's start and one in each ``on_superstep`` call (which
 follows the driver's overflow readback, a device sync), so a regrow's
-discarded attempt or a host gap falls inside the latency it delays.
+discarded attempt or a host gap falls inside the latency it delays. On
+several chips they are read on the host clock: ``on_superstep`` runs in
+this process as rank 0's records arrive, where a CUDA event would time
+nothing that the ranks do.
+
+Device memory on several chips counts every process: the window's peak
+is this process's allocator peak over the window plus each rank's
+largest ``peak_bytes`` over the window's jobs (``RunResult.workers``; a
+rank resets its peak at each job's start), and the set-up's is reckoned
+alike over the warm job. A traced run on several chips profiles the
+ranks themselves (``ranktrace``: busy and window seconds, kernels and
+gaps, each a rank's mean) and replays nothing (``stages.of``). Before the
+pool closes, each rank names the banned modules it holds
+(``run.banned_modules``), which the result carries out under
+``banned_in_ranks`` for the command to refuse.
 
 ``device="cpu"`` runs the same steps on the port's plain kernels; the
 command line refuses it, and the tests use it at small sizes.
@@ -26,7 +48,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from bench import graphs, jobs as jobgen, manifest as mf, timeline
+from bench import (graphs, jobs as jobgen, manifest as mf, ranktrace,
+                   timeline)
 
 # the --trace 1 run profiles this many jobs, the window's first ones
 TRACE_JOBS = 3
@@ -56,6 +79,7 @@ class RunContext:
     msg_dims: int
     plan: object             # the PhysicalPlan the jobs ran
     device: torch.device
+    chips: int = 1           # run_sharded's ranks; 1: run_host
     setup_s: float = 0.0
     load_s: float = 0.0
     window_s: float = 0.0
@@ -75,10 +99,10 @@ class RunContext:
 
 class Marks:
     """Superstep boundaries: CUDA events on the card (its clock), the
-    host clock on the CPU."""
+    host clock on the CPU or where ``host`` says so."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+    def __init__(self, device: torch.device, host: bool = False):
+        self.cuda = device.type == "cuda" and not host
 
     def mark(self):
         if not self.cuda:
@@ -128,15 +152,70 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+class RankPeaks:
+    """Each rank's largest ``peak_bytes`` over a run of jobs and the card
+    it ran on, from the jobs' ``RunResult.workers`` (none on one chip)."""
+
+    def __init__(self):
+        self.bytes: dict = {}     # rank -> bytes
+        self.card: dict = {}      # rank -> its device, e.g. "cuda:1"
+
+    def add(self, workers):
+        for w in workers or ():
+            if w.get("peak_bytes") is not None:
+                r = int(w["rank"])
+                self.bytes[r] = max(self.bytes.get(r, 0),
+                                    int(w["peak_bytes"]))
+                self.card[r] = str(w["device"])
+
+    def total(self, own: int) -> int:
+        """Every process's bytes: ``own``, this process's, and each
+        rank's."""
+        return own + sum(self.bytes.values())
+
+    def fullest(self, own: int, own_card: str) -> int:
+        """The fullest card's bytes: ``own`` on ``own_card`` and each
+        rank's on its own card, summed by card."""
+        by = {own_card: own}
+        for r, b in self.bytes.items():
+            by[self.card[r]] = by.get(self.card[r], 0) + b
+        return max(by.values())
+
+    def by_rank(self) -> list:
+        return [self.bytes[r] for r in sorted(self.bytes)]
+
+
+def _banned_in_rank(*, axis=None) -> list:
+    """The banned modules loaded in a rank of the pool (``RankPool.map``)."""
+    from bench.run import banned_modules
+    return banned_modules(sys.modules)
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              device="cuda", t_start: float | None = None,
              overrides: dict | None = None, cell: dict | None = None,
              log=None) -> dict:
     """Run ``workload`` once and return its result line as a dict (the
-    keys the command prints, ``checks`` last). ``overrides`` replaces
-    keys of the configuration (the tests' small graphs); ``cell`` stands
-    for the workload's entry in ``BENCHMARK.json`` (the tests' pairs of a
-    configuration and a mix that no cell runs yet)."""
+    keys the command prints, ``checks`` last, and on several chips
+    ``banned_in_ranks``, which the command takes out). ``overrides``
+    replaces keys of the configuration (the tests' small graphs);
+    ``cell`` stands for the workload's entry in ``BENCHMARK.json`` (the
+    tests' pairs of a configuration and a mix that no cell runs yet, or
+    another ``chips``).
+    The ranks of a cell on several chips are stopped however the run
+    ends."""
+    pools = []
+    try:
+        return _run_cell(workload, seed, seconds, trace, device=device,
+                         t_start=t_start, overrides=overrides, cell=cell,
+                         log=log, pools=pools)
+    finally:
+        for pool in pools:
+            pool.close()
+
+
+def _run_cell(workload, seed, seconds, trace, *, device, t_start,
+              overrides, cell, log, pools) -> dict:
     from repro_torch.core import gather_values, load_graph, run_host
 
     t_start = time.perf_counter() if t_start is None else t_start
@@ -148,6 +227,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     alg = mf.algorithm(traffic["algorithm"])
     dev = torch.device(device)
     max_ss = int(traffic["max_supersteps"])
+    chips = int(cell["chips"])
+    cuda = dev.type == "cuda"
+    card = f"cuda:{torch.cuda.current_device()}" if cuda else None
 
     # 1. the graph, on the device, from the seed
     g = graphs.make_graph(cfg, seed, dev)
@@ -158,8 +240,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     del g
     _free(dev)
 
-    # 2. the bulk load, 3. one warm job (the first run in a checkout
-    # builds the kernels here)
+    # 2. the bulk load (and on several chips the ranks), 3. one warm job
+    # (the first run in a checkout builds the kernels here)
     prog = jobgen.make_program(traffic, warm_args)
     plan = jobgen.plan_for(traffic, prog)
     parts = int(cfg["partitions"])
@@ -169,8 +251,28 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                       device=dev)
     _sync(dev)
     load_s = time.perf_counter() - t
-    res = run_host(vert, prog, plan, max_supersteps=max_ss)
+    pool = None
+    if chips > 1:
+        from repro_torch.core.sharded import RankPool, run_sharded
+        pool = RankPool(chips, dev)
+        pools.append(pool)
+
+    def run_job(prog, on_superstep=None):
+        if pool is None:
+            return run_host(vert, prog, plan, max_supersteps=max_ss,
+                            on_superstep=on_superstep)
+        return run_sharded(vert, prog, plan, devices=chips, pool=pool,
+                           max_supersteps=max_ss, on_superstep=on_superstep)
+
+    setup_ranks = RankPeaks()
+    if pool is not None and cuda:
+        # the set-up's peak on this card before the warm job, then the
+        # warm job's in every process
+        before_warm = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = run_job(prog)
     _sync(dev)
+    setup_ranks.add(res.workers)
     del res
     # the answers a run judges are copied into buffers made here, so the
     # window allocates alike whichever jobs the sample keeps
@@ -180,42 +282,50 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     keep_val = torch.empty((n_keep,) + tuple(vert.value.shape),
                            dtype=vert.value.dtype, device=dev)
     _sync(dev)
-    setup_peak = (torch.cuda.max_memory_allocated(dev)
-                  if dev.type == "cuda" else None)
+    setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    if pool is not None and cuda:
+        setup_peak = max(before_warm, setup_ranks.fullest(setup_peak, card))
     setup_s = time.perf_counter() - t_start
     log(f"[bench] {workload} seed {seed}: n {n}, edges {num_edges} "
         f"({listed_edges} listed), "
-        f"load {load_s:.3f} s, set-up {setup_s:.3f} s")
+        f"load {load_s:.3f} s, set-up {setup_s:.3f} s"
+        + (f", {chips} ranks" if pool is not None else ""))
 
     ctx = RunContext(workload=workload, config=cfg, traffic=traffic,
                      algorithm=alg, n=n, num_edges=num_edges,
                      listed_edges=listed_edges, parts=parts,
                      value_dims=prog.value_dims, msg_dims=prog.msg_dims,
-                     plan=plan, device=dev, setup_s=setup_s, load_s=load_s)
+                     plan=plan, device=dev, chips=chips, setup_s=setup_s,
+                     load_s=load_s)
 
     # 4. the window: jobs back to back
-    marks = Marks(dev)
+    marks = Marks(dev, host=pool is not None)
     sample = Reservoir(n_keep, seed)
+    window_ranks = RankPeaks()
     job_marks = []
     prof = span = ptrace = None
-    if dev.type == "cuda":
+    ranks_traced = False
+    if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     i = 0
     while True:
         i += 1
         traced = trace and i <= TRACE_JOBS
-        if traced and prof is None:
+        if traced and pool is None and prof is None:
             prof, span, ptrace = _start_trace(dev)
+        if traced and pool is not None and not ranks_traced:
+            pool.map(ranktrace.start, [(dev.type,)] * chips)
+            ranks_traced = True
         args = stream.job(i)
         prog = jobgen.make_program(traffic, args)
         m = [marks.mark()]
         with torch.profiler.record_function("bench.job"):
-            res = run_host(vert, prog, plan, max_supersteps=max_ss,
-                           on_superstep=lambda *a, m=m: m.append(
-                               marks.mark()))
+            res = run_job(prog, on_superstep=lambda *a, m=m: m.append(
+                marks.mark()))
             _sync(dev)
         job_marks.append(m)
+        window_ranks.add(res.workers)
         ctx.jobs.append(JobRecord(args=args, stats=res.stats, latencies=[],
                                   supersteps=res.supersteps, traced=traced))
         slot = sample.offer((i, args))
@@ -227,6 +337,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             span.__exit__(None, None, None)
             ptrace.stop()
             prof.stop()
+        if ranks_traced and i == TRACE_JOBS:
+            pool.map(ranktrace.stop, [()] * chips)
         if time.perf_counter() - t0 >= seconds and \
                 (not trace or i >= TRACE_JOBS):
             break
@@ -236,9 +348,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         rec.latencies = [marks.seconds(a, b) for a, b in zip(m, m[1:])]
     del job_marks
     memory_peak = None
-    if dev.type == "cuda":
-        ctx.window_peak_bytes = torch.cuda.max_memory_allocated(dev)
-        memory_peak = max(setup_peak, ctx.window_peak_bytes)
+    if cuda:
+        own = torch.cuda.max_memory_allocated(dev)
+        ctx.window_peak_bytes = window_ranks.total(own)
+        memory_peak = max(setup_peak, window_ranks.fullest(own, card))
+    if ranks_traced:
+        ctx.trace = ranktrace.merge(pool.map(ranktrace.read, [()] * chips))
+        log(f"[bench] {chips} ranks: busy, window, kernel and gap seconds "
+            "are the ranks' means; no stage reading, as the port's spans "
+            "are not bridged to the ranks' profilers")
+    banned_in_ranks = None
+    if pool is not None:
+        banned_in_ranks = sorted({m for found in pool.map(
+            _banned_in_rank, [()] * chips) for m in found})
+        pool.close()
 
     for rec in ctx.jobs:
         lat = rec.latencies
@@ -256,7 +379,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if prof is not None:
         ctx.trace = _read_trace(prof)
         del prof
-    ctx.edges = torch.from_numpy(edges_host).to(dev)
+    ctx.edges = graphs.to_int64(edges_host, dev)
     del edges_host
 
     # 6. the comparison with the plain reference
@@ -287,11 +410,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         v = mf.metric_reader(m["name"]).read(ctx)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+    device_info = {"platform": "gpu" if cuda else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else dev.type),
-                   "count": int(cell["chips"]),
+                            if cuda else dev.type),
+                   "count": chips,
                    "memory_peak_bytes": memory_peak}
+    if pool is not None and cuda:
+        device_info["peak_bytes_by_rank"] = window_ranks.by_rank()
     out = {"correct": bool(correct), "attempted": len(ctx.jobs),
            "failed": int(failed), "metrics": metrics, "device": device_info}
     if ctx.trace is not None:
@@ -299,6 +424,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         device_info["window_s"] = ctx.trace.window_s
         out["breakdown"] = {"device_ops": ctx.trace.top_ops(),
                             "idle_gaps": ctx.trace.top_gaps()}
+    if banned_in_ranks is not None:
+        out["banned_in_ranks"] = banned_in_ranks
     out["checks"] = checks
     return out
 

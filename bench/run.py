@@ -6,9 +6,17 @@ run from the root of a checkout on a machine with the cell's cards. It
 prints one JSON line last on standard output (``correct``, ``attempted``,
 ``failed``, ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and
 ``checks`` last: each number compared with its limit), and the same
-checks as the last lines of standard error. Without CUDA, with fewer cards
-than the cell asks for, or with a JAX module loaded once the window has
-closed, it exits non-zero and prints no result.
+checks as the last lines of standard error. ``device.count`` is the
+cell's ``chips``; on several chips ``device.memory_peak_bytes`` is the
+fullest card's peak (on the first card the harness's and rank 0's
+summed), ``device.peak_bytes_by_rank`` each rank's over the window, and
+a ``--trace 1`` run's ``busy_s``, ``window_s`` and ``breakdown`` the
+ranks' means.
+Without CUDA, with fewer cards than the cell asks for, or with a JAX
+module loaded once the window has closed, in this process or in a rank
+of a cell on several chips, it exits non-zero and prints no result. The
+ranks are processes of the port's ``RankPool``, stopped before the result
+is printed.
 """
 import time
 
@@ -69,9 +77,10 @@ def main(argv=None) -> int:
     out = harness.run_cell(args.workload, args.seed, args.seconds,
                            bool(args.trace), device="cuda", t_start=T_START)
     found = banned_modules(sys.modules)
-    if found:
-        print(f"[bench] modules that no run may load are loaded: {found}",
-              file=sys.stderr)
+    in_ranks = out.pop("banned_in_ranks", [])
+    if found or in_ranks:
+        print(f"[bench] modules that no run may load are loaded: {found} "
+              f"in this process, {in_ranks} in the ranks", file=sys.stderr)
         return 3
     for name, c in out["checks"].items():
         print(f"check {name}: {c['value']} (limit {c['limit']})",

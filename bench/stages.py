@@ -181,8 +181,10 @@ def replay(ctx) -> StageReading:
 
 def of(ctx) -> StageReading | None:
     """The run's reading, made once (``replay``) and kept on
-    ``ctx.stages``; None for an untraced run."""
-    if ctx.trace is None:
+    ``ctx.stages``; None for an untraced run, and for a run on several
+    chips, whose ranks' spans reach no profiler and whose graph one card
+    need not hold whole."""
+    if ctx.trace is None or ctx.chips > 1:
         return None
     reading = getattr(ctx, "stages", None)
     if reading is None:

@@ -38,7 +38,7 @@ def test_generators_repeat_from_a_seed(config):
     assert torch.equal(a.edges, b.edges)
     assert not torch.equal(a.edges[:100], c.edges[:100])
     e = a.edges
-    assert e.dtype == torch.int64 and e.shape[1] == 2
+    assert e.dtype == graphs.id_dtype(a.n) and e.shape[1] == 2
     assert bool((e[:, 0] != e[:, 1]).all())
     assert int(e.min()) >= 0 and int(e.max()) < a.n
 

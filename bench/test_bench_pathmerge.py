@@ -38,8 +38,12 @@ GENOMES = {
 
 
 def genome(name, seed=SEED) -> graphs.Graph:
-    return graphs.make_graph({**mf.config("gage-chr14-k31"),
-                              **GENOMES[name]}, seed, "cpu")
+    """The genome's graph, its edges int64 as the harness hands them to
+    the reference (``graphs.to_int64``)."""
+    g = graphs.make_graph({**mf.config("gage-chr14-k31"),
+                           **GENOMES[name]}, seed, "cpu")
+    g.edges = graphs.to_int64(g.edges, "cpu")
+    return g
 
 
 def test_a_sequence_without_repeats_is_two_chains():

@@ -154,7 +154,7 @@ def _cpu_ctx():
                       plan=jobgen.plan_for(traffic, prog),
                       device=torch.device("cpu"),
                       trace=timeline.TraceReading(1.0, 0.0), jobs=jobs,
-                      edges=g.edges)
+                      edges=graphs.to_int64(g.edges, "cpu"))
 
 
 def test_the_port_emits_every_span_the_readers_read():

@@ -17,15 +17,19 @@ NAME_CHARS = 120     # a kernel's name in the breakdown, cut to this
 
 @dataclass
 class TraceReading:
+    """One trace's reading, or the mean of ``ranks`` ranks' readings
+    (``ranktrace.merge``): every field a rank's mean."""
     window_s: float                      # length of the traced window
     busy_s: float                        # device busy inside it
     kernel_s: dict = field(default_factory=dict)   # name -> device s
     gaps: list = field(default_factory=list)       # [(host name, s)]
+    ranks: int = 1
 
     def kernel_seconds(self, *patterns) -> float:
-        """Device seconds of the kernels whose name holds a pattern."""
-        return sum(s for k, s in self.kernel_s.items()
-                   if any(p in k for p in patterns))
+        """Device seconds of the kernels whose name holds a pattern,
+        summed over the ranks: the seconds of the whole graph's work."""
+        return self.ranks * sum(s for k, s in self.kernel_s.items()
+                                if any(p in k for p in patterns))
 
     def top_ops(self, k: int = TOP) -> list:
         return [[name[:NAME_CHARS], s] for name, s in sorted(
